@@ -1,0 +1,222 @@
+"""Build and bind the hand-written CUDA kernels (csrc/kernels.cu).
+
+The kernels are compiled on first use with `nvcc` for sm_90a into a shared
+library with a plain C interface, loaded with ctypes. The library lives in
+`dftpav_tpu_torch/_build/` under a name keyed by a hash of the sources and
+flags, so an edited source rebuilds by itself; deleting the directory forces
+a rebuild. Nothing here runs at import time: the CPU tests import every
+module without a GPU, a compiler or the library.
+
+Every launch checks its tensors (CUDA, float32, contiguous, shapes) and
+raises on anything else; it raises too when the C entry point returns a
+CUDA error. There is no fallback to the plain versions here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+from dftpav_tpu_torch.ops.kcost import (KConsts, KScenario, StaticW,
+                                        bnd_rows, dp_of, misc_rows, r_rows)
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "dftpav_tpu_torch/csrc on first use and need the "
+                       "CUDA toolkit")
+
+
+def library_path() -> pathlib.Path:
+    """Path of the shared library for the current sources (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdftpav_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu unless the library for these sources exists.
+    The compiler's register and spill report goes to `<library>.log`."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(s) for s in CSRC.glob("*.cu"))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def library():
+    """The loaded kernel library (built on first call). Raises without a
+    CUDA device."""
+    global _lib
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; CPU tensors "
+                           "take the plain PyTorch path")
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.dftpav_eval_fg.argtypes = [_P] * 11 + [_I] * 5 + [_P] * 3
+        lib.dftpav_eval_fg.restype = _I
+        lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 9 + [_P] * 4
+        lib.dftpav_solve_fused.restype = _I
+        lib.dftpav_error_string.argtypes = [_I]
+        lib.dftpav_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, shape):
+    if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
+        raise ValueError(f"{name}: need a contiguous float32 CUDA tensor, got "
+                         f"{t.dtype} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_inputs(lib, x, sc: KScenario, kc: KConsts, dims):
+    if dims.N != lib.dftpav_kernel_n() or dp_of(dims) != lib.dftpav_kernel_dp():
+        raise NotImplementedError(
+            f"the kernels are built for N={lib.dftpav_kernel_n()} pieces; "
+            f"got N={dims.N}")
+    if dims.H > lib.dftpav_max_h():
+        raise NotImplementedError(f"H={dims.H} > {lib.dftpav_max_h()}")
+    B = x.shape[-1]
+    R, C, O = r_rows(dims), dims.N + 5, max(dims.O, 1)
+    _check("x", x, (dp_of(dims), B))
+    _check("bnd", sc.bnd, (bnd_rows(dims), B))
+    _check("misc", sc.misc, (misc_rows(dims), B))
+    _check("corr_n", sc.corr_n, (dims.H, 2, R, B))
+    _check("corr_p", sc.corr_p, (dims.H, 2, R, B))
+    _check("corr_m", sc.corr_m, (dims.H, R, B))
+    _check("obs_c", sc.obs_c, (O, 2, 6 * dims.Po, B))
+    _check("P", kc.P, (1, 3, R, C))
+    _check("gridc", kc.gridc, (1, 2, R, 1))
+    if kc.Q.shape[-1] != C or not kc.Q.is_cuda:
+        raise ValueError(f"Q: shape {tuple(kc.Q.shape)}")
+    return B, R
+
+
+def weight_vector(sw: StaticW, sigma: float):
+    """The kernels' weight vector (csrc/kcost.cuh WIdx order), computed in
+    double on the host and rounded once to float32."""
+    vals = [sw.wei_obs, sw.wei_surround, sw.wei_feas, sw.wei_time,
+            sw.max_forward_vel, sw.max_forward_acc, sw.max_forward_cur,
+            sw.max_backward_vel, sw.max_backward_acc, sw.max_backward_cur,
+            sw.mini_t, sw.epis, sw.lse_alpha, sw.cost_scale,
+            (1.5 * sw.veh_len) ** 2,
+            sw.surround_clearance + math.log(8.0) / sw.lse_alpha, sigma]
+    vals += [v for xy in sw.le for v in xy]
+    vals += [v for xy in sw.e_hat for v in xy]
+    return vals
+
+
+def lbfgs_vector(p, flags):
+    """The kernels' L-BFGS parameter vector (csrc/solve.cuh LIdx order)."""
+    return [p.delta, p.delta / max(p.past, 1), p.g_epsilon, p.min_step,
+            p.max_step, p.f_dec_coeff, p.s_curv_coeff, p.cautious_factor,
+            p.machine_prec, flags.adaptive_step_lo, flags.adaptive_step_mult]
+
+
+def _floats(vals, n):
+    if len(vals) != n:
+        raise ValueError(f"parameter vector of {len(vals)} != {n}")
+    return (ctypes.c_float * n)(*vals)
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}: "
+                           f"{lib.dftpav_error_string(rc).decode()}")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch_eval_fg(x, sc: KScenario, kc: KConsts, sw: StaticW, dims,
+                   sigma: float):
+    """Kernel A: (f [B], g [DP, B]) at x [DP, B]."""
+    lib = library()
+    B, R = _check_inputs(lib, x, sc, kc, dims)
+    Q = kc.Q[0, :dims.N + 5].contiguous()
+    f = torch.empty(B, dtype=torch.float32, device=x.device)
+    g = torch.empty_like(x)
+    w = _floats(weight_vector(sw, sigma), lib.dftpav_weight_len())
+    rc = lib.dftpav_eval_fg(
+        x.data_ptr(), sc.bnd.data_ptr(), sc.misc.data_ptr(),
+        sc.corr_n.data_ptr(), sc.corr_p.data_ptr(), sc.corr_m.data_ptr(),
+        sc.obs_c.data_ptr(), kc.P.data_ptr(), Q.data_ptr(),
+        kc.gridc.data_ptr(), ctypes.addressof(w), B, R, dims.H, dims.O,
+        dims.Po, f.data_ptr(), g.data_ptr(), _stream())
+    _raise_on(lib, rc, "dftpav_eval_fg")
+    return f, g
+
+
+def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
+                       dims, sigma: float, p, max_iter: int, flags):
+    """Kernel B: the whole solve from (x0, f0, g0). Returns x [DP, B],
+    f [B] and info [3, B] int32 (status, k clamped to max_iter, evals)."""
+    lib = library()
+    B, R = _check_inputs(lib, x0, sc, kc, dims)
+    _check("f0", f0, (B,))
+    _check("g0", g0, tuple(x0.shape))
+    if p.mem_size != lib.dftpav_mem() or p.past > lib.dftpav_max_past():
+        raise NotImplementedError(
+            f"the kernel is built for mem_size={lib.dftpav_mem()} and "
+            f"past <= {lib.dftpav_max_past()}")
+    Q = kc.Q[0, :dims.N + 5].contiguous()
+    x = torch.empty_like(x0)
+    f = torch.empty(B, dtype=torch.float32, device=x0.device)
+    info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
+    w = _floats(weight_vector(sw, sigma), lib.dftpav_weight_len())
+    lp = _floats(lbfgs_vector(p, flags), lib.dftpav_lbfgs_len())
+    rc = lib.dftpav_solve_fused(
+        x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
+        sc.misc.data_ptr(), sc.corr_n.data_ptr(), sc.corr_p.data_ptr(),
+        sc.corr_m.data_ptr(), sc.obs_c.data_ptr(), kc.P.data_ptr(),
+        Q.data_ptr(), kc.gridc.data_ptr(), ctypes.addressof(w),
+        ctypes.addressof(lp), int(max_iter), int(p.max_linesearch),
+        int(p.past), int(bool(flags.adaptive_step)), B, R, dims.H, dims.O,
+        dims.Po, x.data_ptr(), f.data_ptr(), info.data_ptr(),
+        _stream())
+    _raise_on(lib, rc, "dftpav_solve_fused")
+    return x, f, info
