@@ -18,15 +18,40 @@ non-zero and prints no final result):
   4. the main path, solver.make_solver(engine="fused") on
      scenarios.batch_scenarios(B=8192, seed=7, float32, 2 obstacles),
      timed with CUDA events (one warm-up, best of 3), beside the plain
-     round loop at the same shapes; gate success >= 0.99 and every kernel
-     of the path launched; "kernel_times" again at this batch.
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": ...}.
+     round loop at B=1024; gate success >= 0.99 and every kernel
+     of the path launched; "kernel_times" again at this batch;
+  5. kernels K2 / K3 (the corridor penalty's forward and backward) against
+     their plain versions, float32, on the operands the bminor objective
+     gives them: the bench fixture at B=1024 (x0 plus numpy noise) and a
+     stacked S=2 gear_scenario batch at B=256 (the reverse-gear sign
+     fold), then the main path's B=8192 bench operands. Gates: per lane
+     |df| <= 1e-4 * max(|f|, 1) against plain float32; per gradient
+     against float64, max|d - d64| over max(1, max|d64|), taken over the
+     batch and per lane, no more than max(1e-3, 4x the plain float32
+     pair's same error) (float32 cannot resolve the hinge's smoothing band
+     at B=8192; errors against plain float32 printed); also total_cost_b's value and x-gradient with corridor_backend
+     "pallas" against "xla", and "auto" (which must launch K2) against
+     "pallas" (the phase 2 gate); then a "kernel_times" line for K2 / K3
+     on the B=8192 operands;
+  6. the second path, solver.make_solver(engine="bminor") with
+     corridor_backend "pallas" on the B=8192 fixture, 150 iterations (a
+     5-iteration warm-up at B=256, then one run timed with CUDA events),
+     beside the same call with "xla" (no kernel on that path) on the first
+     1024 lanes; gates success >= 0.99, cost p50 of those lanes within 2%
+     of the "xla" run's, both corridor kernels launched, finite
+     coefficients of shape (B, 1, 8, 6, 2).
+Then one line {"kernels": [...]} with every kernel's launches on its path,
+error, times and bound (the least time the card could take: the larger of
+the bytes each input is read once and each output written once over
+3.35 TB/s, and the float32 operations over 67 TFLOP/s, both for the inputs
+of the timed call), and, last, {"ok": true, "device": ...}.
 Needs one CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -59,6 +84,49 @@ def _cuda_ms(fn, reps=3, warmup=1):
         e.record()
         e.synchronize()
         best = min(best, s.elapsed_time(e))
+    return best
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
+# tensor cores FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# float32 operations per sample row, counted from the kernels' sources at
+# H = 4 (the hinge's linear branch): K2 (csrc/penalty.cuh corridor_fwd_row),
+# K3 (corridor_bwd_row), and one objective evaluation of kernel A (csrc/
+# kcost.cuh lane_fg: sample maps 156, corridor with gradient 440,
+# feasibility 90, chain back to the coefficients 156) without the
+# obstacle block, whose work depends on the data (a lower bound); per lane
+# and evaluation kernel A adds the jerk form and its gradient (~1,400), and
+# per iteration kernel B the two-loop recursion over m = 16 pairs (~2,000).
+FLOP_ROW_K2, FLOP_ROW_K3, FLOP_ROW_A = 186, 460, 860
+FLOP_LANE_A, FLOP_ITER_B = 1400, 2000
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by) for work that moves nbytes and does flops."""
+    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _cuda_ms_per_call(fn, n=20, reps=3):
+    """Best-of-`reps` milliseconds per call of n back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        best = min(best, s.elapsed_time(e) / n)
     return best
 
 
@@ -116,7 +184,7 @@ def main(argv=None) -> int:
     dims = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
     cfg = PlannerConfig()
     tuned = EngineFlags.tuned()
-    w = weights_from_config(cfg.opt, torch.float32)
+    w = weights_from_config(cfg.opt, torch.float32, device=dev)
     sw = kcost.StaticW.build(w, cfg)
 
     def fixture(B, seed=7):
@@ -195,14 +263,33 @@ def main(argv=None) -> int:
         _b, x0b, scb, kcb, _D = pallas_solve._prep(b, w, dims, torch.float32,
                                                    0.25)
         f0b, g0b = _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25)
-        t = {"B": b.init_T.shape[0], "ms_a": _cuda_ms(
+        Bb = b.init_T.shape[0]
+        t = {"B": Bb, "ms_a": _cuda_ms(
             lambda: _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25),
             reps=20)}
         t["plain_ms_a"] = _cuda_ms(lambda: kcost.eval_fg_plain(
             x0b, scb, kcb, sw, dims, tuned), reps=5)
-        t["ms_b"] = _cuda_ms(lambda: _cuda.launch_solve_fused(
-            x0b, f0b, g0b, scb, kcb, sw, dims, 0.25, cfg.opt.lbfgs, iters,
-            tuned), reps=3)
+        outb = {}
+
+        def run_b():
+            outb["r"] = _cuda.launch_solve_fused(
+                x0b, f0b, g0b, scb, kcb, sw, dims, 0.25, cfg.opt.lbfgs,
+                iters, tuned)
+
+        t["ms_b"] = _cuda_ms(run_b, reps=3)
+        # bounds: inputs read once, outputs written once; operations of the
+        # weighted rows (kernel B: the evaluations and iterations this run
+        # needed, its n_evals counting the initial one made by kernel A)
+        rows = int((kcb.gridc[0, 0] > 0).sum())
+        ins = _nbytes(x0b, *scb, kcb.P, kcb.Q[0, :dims.N + 5], kcb.gridc)
+        t["bound_ms_a"], t["bound_by_a"] = _bound(
+            ins + _nbytes(f0b, g0b), Bb * (rows * FLOP_ROW_A + FLOP_LANE_A))
+        xb, fb, infob = outb["r"]
+        evals = int(infob[2].sum()) - Bb
+        t["bound_ms_b"], t["bound_by_b"] = _bound(
+            ins + _nbytes(f0b, g0b, xb, fb, infob),
+            evals * (rows * FLOP_ROW_A + FLOP_LANE_A)
+            + int(infob[1].sum()) * FLOP_ITER_B)
         t["plain_ms_b"] = _cuda_ms(lambda: pallas_solve._solve_rounds(
             x0b, scb, kcb, sw, dims, cfg.opt.lbfgs, iters, tuned),
             reps=1, warmup=0)
@@ -235,8 +322,10 @@ def main(argv=None) -> int:
                  and torch.isfinite(res.cost).all().item())
 
     times_main = kernel_times(big)
+    # the plain round loop is host bound (~1,000 small launches a round):
+    # timed once, at the check batch
     plain_wall_ms = _cuda_ms(lambda: solver.make_solver(
-        cfg, dims, iters, engine="rounds", flags=tuned)(big, w),
+        cfg, dims, iters, engine="rounds", flags=tuned)(batch, w),
         reps=1, warmup=0)
     ok_main = (succ >= 0.99 and shapes_ok and launches["eval_fg"] > 0
                and launches["solve_fused"] > 0)
@@ -245,12 +334,224 @@ def main(argv=None) -> int:
           cost_p50=res.cost.median().item(),
           iters_p50_p90_p99=[_pct(res.n_iters.float(), q)
                              for q in (50, 90, 99)],
-          launches=launches, plain_rounds_wall_ms=plain_wall_ms,
+          launches=launches, plain_rounds_B=B_chk,
+          plain_rounds_wall_ms=plain_wall_ms,
           jax_reference_quality={"success": 0.9991, "cost_p50": 4411.7,
                                  "source": "BENCH_r05.json (TPU run)"},
           ok=bool(ok_main))
     if not ok_main:
         raise AssertionError("main path failed its gate")
+
+    # ---- 5. kernels K2 / K3 vs plain ----
+    from dftpav_tpu_torch import cost
+    from dftpav_tpu_torch.ops import bcost, pallas_penalty as pp
+
+    def with_backend(name):
+        return dataclasses.replace(cfg, opt=dataclasses.replace(
+            cfg.opt, corridor_backend=name))
+
+    cfg_p, cfg_x = with_backend("pallas"), with_backend("xla")
+    le = pp.hull_tuple(cost.hull_arrays(cfg)[0])
+
+    def corridor_case(dims_c, batch, big_noise, seed):
+        """The bminor objective's inputs at x0 plus numpy noise (a quarter
+        of the lanes 0.4, a quarter big_noise, so that hinges are active):
+        (x [dim, B], batch-minor scenario, kernel-layout operands, gbar)."""
+        batch = solver.clamp_boundary_states(batch, w)
+        x = cost.initial_guess(batch, w, dims_c).T.contiguous()
+        Bc = x.shape[1]
+        rng = np.random.default_rng(seed)
+        sc = np.zeros(Bc)
+        sc[Bc // 2:3 * Bc // 4], sc[3 * Bc // 4:] = 0.4, big_noise
+        x += torch.from_numpy((sc * rng.standard_normal(tuple(x.shape)))
+                              .astype(np.float32)).to(dev)
+        bm = bcost.to_bminor(batch)
+        sp = bcost.samples_b(x, bm, w, dims_c)
+        ops = pp.kernel_layout(sp.sig, sp.dsig, sp.sgl, sp.wq, bm.corr_n,
+                               bm.corr_p, bm.corr_mask, w.wei_obs)
+        gbar = torch.from_numpy(rng.uniform(0.5, 2.0, Bc).astype(
+            np.float32)).to(dev)
+        return x, bm, ops, gbar
+
+    def lane_amax(d):
+        """Per-lane max |d| of a [C, R, B] tensor, in float64."""
+        return d.double().abs().amax(dim=(0, 1))
+
+    def check_corridor(name, dims_c, batch, big_noise, seed):
+        x, bm, ops, gbar = corridor_case(dims_c, batch, big_noise, seed)
+        ops64 = [a.double() for a in ops]
+        f_k = _cuda.launch_corridor_fwd(*ops, le)
+        d_k = _cuda.launch_corridor_bwd(*ops, le, gbar)
+        f_p = pp.corridor_penalty_plain_fwd(*ops, le)
+        d_p = pp.corridor_penalty_plain_bwd(*ops, le, gbar)
+        f_64 = pp.corridor_penalty_plain_fwd(*ops64, le)
+        d_64 = pp.corridor_penalty_plain_bwd(*ops64, le, gbar.double())
+        torch.cuda.synchronize()
+
+        def fwd_errs(ref):
+            """(max over lanes of |df| / max(|f|, 1), the same over the
+            lanes with cost of |df| / |f|)."""
+            df = (f_k.double() - ref.double()).abs()
+            pos = ref > 0
+            strict = (df[pos] / ref[pos].double()).max().item() \
+                if bool(pos.any()) else 0.0
+            return ((df / ref.double().abs().clamp(min=1.0)).max().item(),
+                    strict)
+
+        def bwd_errs(ds, ref):
+            """Per gradient: max over lanes of the lane's max|d - d_ref|
+            over its own max(1, max|d_ref|)."""
+            return [(lane_amax(a.double() - r.double())
+                     / lane_amax(r).clamp(min=1.0)).max().item()
+                    for a, r in zip(ds, ref)]
+
+        def bwd_errs_batch(ds, ref):
+            """Per gradient: max|d - d_ref| over max(1, max|d_ref|)."""
+            return [((a.double() - r.double()).abs().max()
+                     / r.double().abs().max().clamp(min=1.0)).item()
+                    for a, r in zip(ds, ref)]
+
+        rel_f, rel_f_strict = fwd_errs(f_p)
+        rel_f64, rel_f64_strict = fwd_errs(f_64)
+        # backward, against float64 and allowed what float32 itself cannot
+        # resolve: rows in the hinge's 1e-4 m smoothing band at coordinates
+        # of ~20 m get slopes off by percents in any float32 evaluation, so
+        # the kernel may be off by up to 4x the plain float32 pair's error
+        rel_d_batch, rel_d = bwd_errs_batch(d_k, d_p), bwd_errs(d_k, d_p)
+        k64 = bwd_errs_batch(d_k, d_64) + bwd_errs(d_k, d_64)
+        p64 = bwd_errs_batch(d_p, d_64) + bwd_errs(d_p, d_64)
+        ok_d = all(k <= max(1e-3, 4.0 * p) for k, p in zip(k64, p64))
+        err_f = (f_k - f_p).abs().max().item()
+        err_d = max((a - r).abs().max().item() for a, r in zip(d_k, d_p))
+        # the whole objective with the kernels against the plain form; "auto"
+        # must take the kernels on CUDA tensors
+        fg, launched = {}, {}
+        for tag, c in (("pallas", cfg_p), ("xla", cfg_x), ("auto", cfg_a)):
+            n0 = pp.corridor_fwd.launches
+            xg = x.detach().requires_grad_(True)
+            f = bcost.total_cost_b(xg, bm, w, dims_c, c)[0]
+            (g,) = torch.autograd.grad(f.sum(), xg)
+            fg[tag] = (f.detach(), g)
+            launched[tag] = pp.corridor_fwd.launches - n0
+        auto_launches = launched["auto"]
+        rel_tf, rel_tg = _rel_errs(*fg["pallas"], *fg["xla"])
+        rel_af, rel_ag = _rel_errs(*fg["auto"], *fg["pallas"])
+        ok = (rel_f <= 1e-4 and ok_d and rel_tf <= 1e-4
+              and rel_tg <= 1e-3 and rel_af <= 1e-4 and rel_ag <= 1e-3
+              and auto_launches > 0 and torch.isfinite(f_k).all().item()
+              and all(torch.isfinite(a).all().item() for a in d_k))
+        _emit("kernels_K2_K3_vs_plain", case=name, B=x.shape[1],
+              R=ops[0].shape[1], lanes_with_corridor_cost=int(
+                  (f_p > 0).sum()),
+              rel_f_max=rel_f, rel_f_max_over_lanes_with_cost=rel_f_strict,
+              rel_d_sig_dsig_wq_batch=rel_d_batch,
+              rel_d_sig_dsig_wq_max=rel_d, rel_f_max_vs_f64=rel_f64,
+              rel_f_max_over_lanes_with_cost_vs_f64=rel_f64_strict,
+              rel_d_sig_dsig_wq_batch_then_max_vs_f64=k64,
+              plain_f32_rel_d_sig_dsig_wq_batch_then_max_vs_f64=p64,
+              max_abs_err_f=err_f, max_abs_err_d=err_d,
+              lane_max_abs_d_p50_lanes_with_cost=[
+                  _pct(lane_amax(r)[f_p > 0], 50) if bool((f_p > 0).any())
+                  else 0.0 for r in d_p],
+              total_cost_b_pallas_vs_xla_rel_f=rel_tf,
+              total_cost_b_pallas_vs_xla_rel_g=rel_tg,
+              total_cost_b_auto_vs_pallas_rel_f_g=[rel_af, rel_ag],
+              auto_k2_launches=auto_launches,
+              tol="per lane |df|<=1e-4*max(|f|,1) vs plain f32; per "
+                  "gradient vs f64, max|dd|/max(1,max|d|) over the batch "
+                  "and per lane <= max(1e-3, 4x plain f32's); total_cost_b "
+                  "as phase 2",
+              ok=bool(ok))
+        if not ok:
+            raise AssertionError(f"K2/K3 disagree with the plain version "
+                                 f"({name})")
+        return err_f, err_d, ops, gbar
+
+    cfg_a = with_backend("auto")
+    dims2 = Dims(S=2, N=8, K=16, Kdes=32, H=4, O=0, Po=8)
+    gear = from_numpy(scenarios.stack_scenarios(
+        [scenarios.gear_scenario(dims2, dtype=np.float32)] * 256), Scenario,
+        device=dev, dtype=torch.float32)
+    err_k2 = err_k3 = 0.0
+    # the last case has the main path's shapes: its operands are timed
+    for case in (("bench", dims, batch, 4.0, 31),
+                 ("gear S=2", dims2, gear, 12.0, 37),
+                 ("bench main", dims, big, 4.0, 41)):
+        e_f, e_d, ops8, gbar8 = check_corridor(*case)
+        err_k2, err_k3 = max(err_k2, e_f), max(err_k3, e_d)
+
+    t_pen = {"B": B_main, "R": ops8[0].shape[1],
+             "ms_k2": _cuda_ms_per_call(
+                 lambda: _cuda.launch_corridor_fwd(*ops8, le), n=20),
+             "plain_ms_k2": _cuda_ms(
+                 lambda: pp.corridor_penalty_plain_fwd(*ops8, le), reps=5),
+             "ms_k3": _cuda_ms_per_call(
+                 lambda: _cuda.launch_corridor_bwd(*ops8, le, gbar8), n=20),
+             "plain_ms_k3": _cuda_ms(
+                 lambda: pp.corridor_penalty_plain_bwd(*ops8, le, gbar8),
+                 reps=5)}
+    rb = ops8[0].shape[1] * B_main
+    t_pen["bound_ms_k2"], t_pen["bound_by_k2"] = _bound(
+        _nbytes(*ops8) + 4 * B_main, FLOP_ROW_K2 * rb)
+    t_pen["bound_ms_k3"], t_pen["bound_by_k3"] = _bound(
+        _nbytes(*ops8, gbar8) + _nbytes(*ops8[:3]), FLOP_ROW_K3 * rb)
+    _emit("kernel_times", **t_pen)
+
+    # ---- 6. the second path: the bminor engine ----
+    solve_p = solver.make_solver(cfg_p, dims, iters, engine="bminor")
+    solver.make_solver(cfg_p, dims, 5, engine="bminor")(fixture(256), w)
+    torch.cuda.synchronize()
+    pp.corridor_fwd.launches = 0
+    pp.corridor_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_p():
+        out["bm"] = solve_p(big, w)
+
+    wall_p = _cuda_ms(run_p, reps=1, warmup=0)
+    launches_pen = {"corridor_fwd": pp.corridor_fwd.launches,
+                    "corridor_bwd": pp.corridor_bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res_p = out["bm"]
+    # the same call with the plain corridor form, on the check batch (the
+    # first B_chk lanes of the same fixture; lanes solve independently)
+    solve_x = solver.make_solver(cfg_x, dims, iters, engine="bminor")
+
+    def run_x():
+        out["bx"] = solve_x(batch, w)
+
+    wall_x = _cuda_ms(run_x, reps=1, warmup=0)
+    res_x = out["bx"]
+    s_bp = res_p.success.float().mean().item()
+    s_bx = res_x.success.float().mean().item()
+    c_bp, c_bx = res_p.cost.median().item(), res_x.cost.median().item()
+    c_bp_chk = res_p.cost[:B_chk].median().item()
+    shapes_ok = (tuple(res_p.coeffs.shape) == (B_main, 1, 8, 6, 2)
+                 and torch.isfinite(res_p.coeffs).all().item()
+                 and torch.isfinite(res_p.cost).all().item())
+    ok_bm = (s_bp >= 0.99 and abs(c_bp_chk - c_bx) <= 0.02 * abs(c_bx)
+             and launches_pen["corridor_fwd"] > 0
+             and launches_pen["corridor_bwd"] > 0 and shapes_ok)
+    _emit("bminor_path", B=B_main, iters=iters, wall_ms=wall_p,
+          solves_per_s=B_main / (wall_p / 1e3), success=s_bp, cost_p50=c_bp,
+          iters_p50_p90_p99=[_pct(res_p.n_iters.float(), q)
+                             for q in (50, 90, 99)],
+          launches=launches_pen,
+          batched_evaluations=launches_pen["corridor_fwd"],
+          peak_memory_gb=peak_gb, cost_p50_first_lanes=c_bp_chk, xla_B=B_chk,
+          xla_wall_ms=wall_x, xla_success=s_bx, xla_cost_p50=c_bx,
+          xla_iters_p50_p90_p99=[_pct(res_x.n_iters.float(), q)
+                                 for q in (50, 90, 99)],
+          jax_reference_quality={
+              "success": 1.0, "cost_p50": 4361, "iters_p50": 99, "B": 1024,
+              "source": "JAX bminor on a TPU v5e (BENCH_r01.json, "
+                        "SKILL.md); not the port's"},
+          tol="success>=0.99, cost p50 of the first xla_B lanes within 2% "
+              "of xla's, K2 and K3 launched, finite coefficients "
+              "(B,1,8,6,2)",
+          ok=bool(ok_bm))
+    if not ok_bm:
+        raise AssertionError("bminor path failed its gate")
 
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
@@ -258,13 +559,35 @@ def main(argv=None) -> int:
          "replaces": "dftpav_tpu/ops/kcost.py:772",
          "launches": launches["eval_fg"], "max_abs_err": err_a,
          "err_of": f"f and g vs plain float32 at B={B_chk}",
-         "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"]},
+         "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"],
+         "bound_ms": times_main["bound_ms_a"],
+         "bound_by": times_main["bound_by_a"], "library_ms": None},
         {"name": "dftpav_solve_fused", "route": "cuda",
          "source": "dftpav_tpu_torch/csrc/kernels.cu",
          "replaces": "dftpav_tpu/ops/pallas_solve.py:567",
          "launches": launches["solve_fused"], "max_abs_err": err_b,
          "err_of": "final f after 12 iterations, lanes whose path matched",
-         "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"]},
+         "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"],
+         "bound_ms": times_main["bound_ms_b"],
+         "bound_by": times_main["bound_by_b"], "library_ms": None},
+        {"name": "dftpav_corridor_fwd", "route": "cuda",
+         "source": "dftpav_tpu_torch/csrc/penalty.cu",
+         "replaces": "dftpav_tpu/ops/pallas_penalty.py:74",
+         "launches": launches_pen["corridor_fwd"], "max_abs_err": err_k2,
+         "err_of": f"per-lane cost vs plain float32, bench B={B_chk} and "
+                   f"B={B_main}, gear S=2 B=256",
+         "ms": t_pen["ms_k2"], "plain_ms": t_pen["plain_ms_k2"],
+         "bound_ms": t_pen["bound_ms_k2"], "bound_by": t_pen["bound_by_k2"],
+         "library_ms": None},
+        {"name": "dftpav_corridor_bwd", "route": "cuda",
+         "source": "dftpav_tpu_torch/csrc/penalty.cu",
+         "replaces": "dftpav_tpu/ops/pallas_penalty.py:86",
+         "launches": launches_pen["corridor_bwd"], "max_abs_err": err_k3,
+         "err_of": f"d_sig, d_dsig, d_wq vs plain float32, bench "
+                   f"B={B_chk} and B={B_main}, gear S=2 B=256",
+         "ms": t_pen["ms_k3"], "plain_ms": t_pen["plain_ms_k3"],
+         "bound_ms": t_pen["bound_ms_k3"], "bound_by": t_pen["bound_by_k3"],
+         "library_ms": None},
     ]
     if args.out:
         with open(args.out, "w") as fh:

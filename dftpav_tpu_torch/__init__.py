@@ -2,9 +2,11 @@
 hand-written CUDA kernels for the NVIDIA H100.
 
 The port of `dftpav_tpu` (JAX on a TPU), which stays beside it as the
-reference. This slice covers the batched whole-solve of the single-segment
-parking class: scenarios -> solver.make_solver(engine="fused") ->
-ops.pallas_solve.solve_batch_fused -> the CUDA kernels in csrc/.
+reference. Two paths are ported: the batched whole-solve of the
+single-segment parking class (scenarios -> solver.make_solver(engine="fused")
+-> ops.pallas_solve.solve_batch_fused -> kernels A and B in csrc/), and the
+batch-minor engine (solver.make_solver(engine="bminor") -> ops.blbfgs over
+ops.bcost, whose corridor term is kernels K2 and K3 in csrc/).
 """
 
 from dftpav_tpu_torch import config as config

@@ -87,6 +87,13 @@ class OptConfig:
     # (raw costs ~1e3-1e4 would drown the 1e-4 relative test in rounding).
     cost_scale: float = 1.0e-3
 
+    # Corridor-penalty backend of the batch-minor engine (ops/bcost.py):
+    # "xla" the plain broadcast form, "pallas" the CorridorPenalty function
+    # of ops/pallas_penalty.py (CUDA kernels for CUDA tensors, its plain
+    # forward and backward for CPU tensors), "auto" "pallas" for CUDA
+    # tensors and "xla" otherwise. The names are the JAX package's.
+    corridor_backend: str = "xla"
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineFlags:

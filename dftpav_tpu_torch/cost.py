@@ -1,5 +1,5 @@
-"""Objective building blocks shared by the kernel-layout objective
-(ops/kcost.py) and the solver setup: the smoothed-L1 hinge, the virtual-time
+"""Objective building blocks shared by the objectives (ops/kcost.py,
+ops/bcost.py) and the solver setup: the smoothed-L1 hinge, the virtual-time
 map, decision-vector packing and the hull constants. Functions take tensors
 with any leading batch shape.
 """
@@ -62,14 +62,29 @@ def unpack(x: torch.Tensor, dims: Dims) -> Unpacked:
     return Unpacked(inner, vt, gp, ga)
 
 
+def pack(u: Unpacked) -> torch.Tensor:
+    """Parts -> decision vector(s) [..., dim] (the inverse of unpack)."""
+    n = u.vt.dim() - 1                               # leading batch dims
+    return torch.cat([u.inner.flatten(n), u.vt, u.gear_pos.flatten(n),
+                      u.gear_ang], dim=-1)
+
+
 def initial_guess(scen: Scenario, w: Weights, dims: Dims) -> torch.Tensor:
-    """x0 [..., dim] from (batched) scenarios (traj_optimizer.cpp:96-115)."""
-    if dims.S > 1:
-        raise NotImplementedError(
-            "multi-gear (S > 1) is not ported yet: ROADMAP.md Queue 1 item 6")
+    """x0 [..., dim] from (batched) scenarios (traj_optimizer.cpp:96-115):
+    the front end's waypoints and durations, and for S > 1 each gear
+    junction at the earlier segment's end state (position, heading of its
+    velocity)."""
     vt = real_to_virtual(scen.init_T, float(w.mini_t))
-    lead = scen.init_inner.shape[:-3]
-    return torch.cat([scen.init_inner.reshape(*lead, -1), vt], dim=-1)
+    inner = scen.init_inner
+    if dims.S > 1:
+        gear_pos = scen.fin_state[..., :-1, :, 0]
+        gv = scen.fin_state[..., :-1, :, 1]
+        gear_ang = torch.atan2(gv[..., 1], gv[..., 0])
+    else:
+        lead = inner.shape[:-3]
+        gear_pos = inner.new_zeros((*lead, 0, 2))
+        gear_ang = inner.new_zeros((*lead, 0))
+    return pack(Unpacked(inner, vt, gear_pos, gear_ang))
 
 
 def hull_arrays(cfg, dtype=np.float64):

@@ -11,8 +11,9 @@
 //     tail p, v*dT, a*dT^2), T = virtual_to_real(vt * sigma), dT = T / N;
 //   * jerk energy dT^-5 rhs^T Q rhs plus wei_time * T;
 //   * per sample row r: sig = P0 rhs, dsig = P1 rhs / dT, ddsig = P2 rhs / dT^2,
-//     then the corridor hinge (E x H), feasibility (speed, acceleration,
-//     two-sided curvature) and the dual log-sum-exp obstacle distance.
+//     then the corridor hinge (E x H, penalty.cuh corridor_row, shared with
+//     the corridor kernels), feasibility (speed, acceleration, two-sided
+//     curvature) and the dual log-sum-exp obstacle distance.
 //
 // Gradient: every row's penalty depends only on (sig, dsig, ddsig, dT), so it
 // is differentiated row-locally -- corridor and feasibility in closed form,
@@ -27,34 +28,9 @@
 // autograd on the CPU before it runs on the card.
 #pragma once
 
-#ifdef __CUDACC__
-#define DFT_HD __host__ __device__ __forceinline__
-#else
-#include <cmath>
-#define DFT_HD inline
-#endif
+#include "penalty.cuh"
 
 namespace dftpav {
-
-DFT_HD float m_sqrt(float x) { return sqrtf(x); }
-DFT_HD double m_sqrt(double x) { return sqrt(x); }
-DFT_HD float m_exp(float x) { return expf(x); }
-DFT_HD double m_exp(double x) { return exp(x); }
-DFT_HD float m_log(float x) { return logf(x); }
-DFT_HD double m_log(double x) { return log(x); }
-DFT_HD float m_floor(float x) { return floorf(x); }
-DFT_HD double m_floor(double x) { return floor(x); }
-DFT_HD float m_abs(float x) { return fabsf(x); }
-DFT_HD double m_abs(double x) { return fabs(x); }
-#ifdef __CUDACC__
-DFT_HD bool m_isfinite(float x) { return isfinite(x); }
-DFT_HD bool m_isfinite(double x) { return isfinite(x); }
-#else
-inline bool m_isfinite(float x) { return std::isfinite(x); }
-inline bool m_isfinite(double x) { return std::isfinite(x); }
-#endif
-template <class T> DFT_HD T m_max(T a, T b) { return a > b ? a : b; }
-template <class T> DFT_HD T m_min(T a, T b) { return a < b ? a : b; }
 
 // ---------------------------------------------------------------------------
 // Forward-mode dual numbers (value + K tangents)
@@ -158,7 +134,6 @@ DFT_HD Dual<T, K> m_log(const Dual<T, K>& a) {
   for (int i = 0; i < K; ++i) r.d[i] = a.d[i] / a.v;
   return r;
 }
-template <class T> DFT_HD T m_rsqrt(T x) { return T(1) / m_sqrt(x); }
 template <class T, int K>
 DFT_HD Dual<T, K> m_rsqrt(const Dual<T, K>& a) {
   Dual<T, K> r;
@@ -168,26 +143,7 @@ DFT_HD Dual<T, K> m_rsqrt(const Dual<T, K>& a) {
   return r;
 }
 
-// ---------------------------------------------------------------------------
-// Smoothed-L1 hinge (positiveSmoothedL1, traj_optimizer.cpp:783-806) and its
-// derivative (dftpav_tpu/ops/pallas_penalty.py _smoothed_l1_grad)
-// ---------------------------------------------------------------------------
-template <class T> DFT_HD T sl1(T x) {
-  const T pe = T(1.0e-4);
-  const T f3c = T(1.0 / (1.0e-4 * 1.0e-4));
-  const T f4c = T(-0.5 * (1.0 / (1.0e-4 * 1.0e-4)) / 1.0e-4);
-  if (x <= T(0)) return T(0);
-  if (x < pe) return (f4c * x + f3c) * x * x * x;
-  return x - T(0.5 * 1.0e-4);
-}
-template <class T> DFT_HD T sl1_grad(T x) {
-  const T pe = T(1.0e-4);
-  const T a = T(4.0 * (-0.5 * (1.0 / (1.0e-4 * 1.0e-4)) / 1.0e-4));
-  const T b = T(3.0 * (1.0 / (1.0e-4 * 1.0e-4)));
-  if (x <= T(0)) return T(0);
-  if (x < pe) return (a * x + b) * x * x;
-  return T(1);
-}
+// Smoothed-L1 hinge of a dual number (common.cuh has the scalar one)
 template <class T, int K>
 DFT_HD Dual<T, K> sl1(const Dual<T, K>& x) {
   Dual<T, K> r;
@@ -249,8 +205,6 @@ struct Slabs {
   const T* obs;    // [O, 2, 6 Po, B]
   int B, R, H, O, Po;
 };
-
-constexpr int kMaxH = 8;
 
 template <class S, class T>
 DFT_HD S horner0(const T* c, const S& tau) {
@@ -520,23 +474,10 @@ DFT_HD T lane_fg(const T* x, T* g, const Slabs<T>& sl, int lane, const T* P,
       cpy[h] = cp[((size_t)(2 * h + 1) * R + r) * B];
       cmh[h] = cm[((size_t)h * R + r) * B];
     }
-    T A = T(0), gA_sx = T(0), gA_sy = T(0), gA_u = T(0), gA_v = T(0);
-    for (int e = 0; e < 4; ++e) {
-      const T lex = w.le[e][0], ley = w.le[e][1];
-      const T bx = sx + u * lex - v * ley;
-      const T by = sy + v * lex + u * ley;
-      for (int h = 0; h < H; ++h) {
-        const T viol = cnx[h] * (bx - cpx[h]) + cny[h] * (by - cpy[h]);
-        A += sl1(viol) * cmh[h];
-        if (want_g) {
-          const T s = sl1_grad(viol) * cmh[h];
-          gA_sx += s * cnx[h];
-          gA_sy += s * cny[h];
-          gA_u += s * (cnx[h] * lex + cny[h] * ley);
-          gA_v += s * (cny[h] * lex - cnx[h] * ley);
-        }
-      }
-    }
+    const CorridorRow<T> cr = corridor_row(sx, sy, u, v, cnx, cny, cpx, cpy,
+                                           cmh, H, w.le, want_g);
+    const T A = cr.A, gA_sx = cr.gx, gA_sy = cr.gy, gA_u = cr.gu,
+            gA_v = cr.gv;
 
     // feasibility
     const T z1 = ddx * dsx + ddy * dsy;

@@ -1,10 +1,16 @@
-"""L-BFGS return codes (lbfgs.hpp / traj_optimizer.cpp:176-188).
+"""L-BFGS return codes (lbfgs.hpp / traj_optimizer.cpp:176-188) and the
+per-lane result of ops/blbfgs.minimize_b.
 
-The solver itself lives in ops/pallas_solve.py (plain round loop) and
-csrc/solve.cuh (the CUDA kernel); both report these codes.
+The solvers live in ops/blbfgs.py (batch-minor L-BFGS), ops/pallas_solve.py
+(plain round loop) and csrc/solve.cuh (the CUDA kernel); all report these
+codes.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
 
 
 class Status:
@@ -24,3 +30,14 @@ class Status:
     @staticmethod
     def ok(status):
         return status >= 0
+
+
+class Result(NamedTuple):
+    """Solver output; every field carries the trailing lane axis [B]."""
+
+    x: torch.Tensor          # [D, B]
+    f: torch.Tensor
+    g: torch.Tensor          # [D, B]
+    n_iters: torch.Tensor    # int32
+    n_evals: torch.Tensor    # int32
+    status: torch.Tensor     # int32 Status codes

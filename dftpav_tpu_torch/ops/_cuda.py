@@ -1,7 +1,9 @@
-"""Build and bind the hand-written CUDA kernels (csrc/kernels.cu).
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The kernels are compiled on first use with `nvcc` for sm_90a into a shared
-library with a plain C interface, loaded with ctypes. The library lives in
+The kernels are compiled on first use with `nvcc` for sm_90a into one shared
+library with a plain C interface, loaded with ctypes: every `.cu` source is
+compiled to an object by its own nvcc process, all started together, and the
+objects are linked into the library. The library lives in
 `dftpav_tpu_torch/_build/` under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds by itself; deleting the directory forces
 a rebuild. Nothing here runs at import time: the CPU tests import every
@@ -30,8 +32,9 @@ from dftpav_tpu_torch.ops.kcost import (KConsts, KScenario, StaticW,
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 _lib = None
 
@@ -61,21 +64,39 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    The compiler's register and spill report goes to `<library>.log`."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them,
+    unless the library for these sources exists. The compilers' register
+    and spill reports go to `<library>.log`."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(s) for s in CSRC.glob("*.cu"))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [so.with_name(f"{so.stem}.{s.stem}.{tag}.o") for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    tmp = so.with_suffix(f".{tag}.tmp")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    log, failed = [], None
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        log.append(" ".join(c) + "\n" + out + err)
+        if p.returncode != 0 and failed is None:
+            failed = (p.returncode, err)
+    if failed is None:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (proc.returncode, proc.stderr)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{failed[1][-4000:]}")
     os.replace(tmp, so)
     return so
 
@@ -97,6 +118,10 @@ def library():
         lib.dftpav_eval_fg.restype = _I
         lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 9 + [_P] * 4
         lib.dftpav_solve_fused.restype = _I
+        lib.dftpav_corridor_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P] * 2
+        lib.dftpav_corridor_fwd.restype = _I
+        lib.dftpav_corridor_bwd.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 4
+        lib.dftpav_corridor_bwd.restype = _I
         lib.dftpav_error_string.argtypes = [_I]
         lib.dftpav_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -220,3 +245,55 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
         _stream())
     _raise_on(lib, rc, "dftpav_solve_fused")
     return x, f, info
+
+
+def _check_penalty(lib, sig, dsig, wq, corr_n, corr_p, corr_mask, le):
+    if corr_n.dim() != 4:
+        raise ValueError(f"corr_n: need [H, 2, R, B], got {tuple(corr_n.shape)}")
+    H, _, R, B = corr_n.shape
+    if H > lib.dftpav_max_h():
+        raise NotImplementedError(f"H={H} > {lib.dftpav_max_h()}")
+    if len(le) != 4:
+        raise NotImplementedError(f"the kernels take a 4-vertex hull, got "
+                                  f"{len(le)} vertices")
+    _check("sig", sig, (2, R, B))
+    _check("dsig", dsig, (2, R, B))
+    _check("wq", wq, (1, R, B))
+    _check("corr_n", corr_n, (H, 2, R, B))
+    _check("corr_p", corr_p, (H, 2, R, B))
+    _check("corr_mask", corr_mask, (H, R, B))
+    return R, B, H, _floats([v for xy in le for v in xy], 8)
+
+
+def launch_corridor_fwd(sig, dsig, wq, corr_n, corr_p, corr_mask, le):
+    """Kernel K2: the per-lane corridor cost [B] (ops/pallas_penalty.py
+    layout; le: 4 hull vertices (x, y))."""
+    lib = library()
+    R, B, H, le_v = _check_penalty(lib, sig, dsig, wq, corr_n, corr_p,
+                                   corr_mask, le)
+    out = torch.empty(B, dtype=torch.float32, device=sig.device)
+    rc = lib.dftpav_corridor_fwd(
+        sig.data_ptr(), dsig.data_ptr(), wq.data_ptr(), corr_n.data_ptr(),
+        corr_p.data_ptr(), corr_mask.data_ptr(), ctypes.addressof(le_v), R,
+        B, H, out.data_ptr(), _stream())
+    _raise_on(lib, rc, "dftpav_corridor_fwd")
+    return out
+
+
+def launch_corridor_bwd(sig, dsig, wq, corr_n, corr_p, corr_mask, le, gbar):
+    """Kernel K3: (d_sig [2, R, B], d_dsig [2, R, B], d_wq [1, R, B]) for
+    the per-lane cotangent gbar [B]."""
+    lib = library()
+    R, B, H, le_v = _check_penalty(lib, sig, dsig, wq, corr_n, corr_p,
+                                   corr_mask, le)
+    _check("gbar", gbar, (B,))
+    d_sig = torch.empty_like(sig)
+    d_dsig = torch.empty_like(dsig)
+    d_wq = torch.empty_like(wq)
+    rc = lib.dftpav_corridor_bwd(
+        sig.data_ptr(), dsig.data_ptr(), wq.data_ptr(), corr_n.data_ptr(),
+        corr_p.data_ptr(), corr_mask.data_ptr(), ctypes.addressof(le_v),
+        gbar.data_ptr(), R, B, H, d_sig.data_ptr(), d_dsig.data_ptr(),
+        d_wq.data_ptr(), _stream())
+    _raise_on(lib, rc, "dftpav_corridor_bwd")
+    return d_sig, d_dsig, d_wq

@@ -30,6 +30,7 @@ from dftpav_tpu_torch.config import EngineFlags, LBFGSParams, PlannerConfig, \
     resolve_vt_scale
 from dftpav_tpu_torch.lbfgs import Status
 from dftpav_tpu_torch.ops import bcost, kcost
+from dftpav_tpu_torch.ops.blbfgs import _dot, _two_loop
 from dftpav_tpu_torch.ops.kcost import KConsts, KScenario, StaticW, dp_of
 from dftpav_tpu_torch.types import Dims, Scenario, SolveResult, Weights
 
@@ -58,29 +59,6 @@ class RoundState(NamedTuple):
     pf: torch.Tensor       # [past, B] past-f window
     n_evals: torch.Tensor  # [B] int32
     status: torch.Tensor   # [B] int32 Status codes
-
-
-def _dot(a, b):
-    """Decision-space dot product [DP, B] x [DP, B] -> [B]."""
-    return torch.sum(a * b, dim=0)
-
-
-def _two_loop(g, lm_s, lm_y, lm_ys, bound, ys, yy):
-    """L-BFGS two-loop recursion over the newest-first history; entries at
-    or past `bound` are dead."""
-    m = lm_s.shape[0]
-    zero = torch.zeros_like(ys)
-    d = -g
-    alphas = []
-    for i in range(m):
-        a = torch.where(i < bound, _dot(lm_s[i], d) / lm_ys[i], zero)
-        d = d - a * lm_y[i]
-        alphas.append(a)
-    d = d * (ys / yy)
-    for i in range(m - 1, -1, -1):
-        b = torch.where(i < bound, _dot(lm_y[i], d) / lm_ys[i], zero)
-        d = d + (alphas[i] - b) * lm_s[i]
-    return d
 
 
 def _solve_rounds(x0, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,

@@ -1,8 +1,9 @@
-"""Synthetic single-segment parking problems for tests and benchmarks.
+"""Synthetic parking problems for tests and benchmarks: random
+single-segment maneuvers and a two-segment gear change.
 
 Pure numpy, identical to `dftpav_tpu.scenarios` for the same seed (the
-parity tests check the arrays bit for bit). Carry a batch to the device
-with `types.from_numpy(batch, Scenario, device, dtype)`.
+parity tests check the arrays bit for bit). Carry a batch to the card
+with `types.from_numpy(batch, Scenario)`.
 """
 
 from __future__ import annotations
@@ -56,6 +57,26 @@ def _corridor_from_obb(pos, head, grow, dims: Dims, dtype,
                   center + ext_w * nvec, center - ext_w * nvec],
                  axis=-2).astype(dtype)
     mask = np.zeros(n.shape[:-1], bool)
+    mask[..., :4] = True
+    return n, p, mask
+
+
+def _corridor_from_boxes(centers, half_x, half_y, dims: Dims, dtype):
+    """Axis-aligned rectangle corridors around centers [N, K1, 2]:
+    (corr_n, corr_p, corr_mask) for one segment, outward unit normal n and
+    boundary point p per half-plane."""
+    N, K1 = dims.N, dims.K1
+    n = np.zeros((N, K1, dims.H, 2), dtype)
+    p = np.zeros((N, K1, dims.H, 2), dtype)
+    n[..., 0, :] = (1.0, 0.0)
+    n[..., 1, :] = (-1.0, 0.0)
+    n[..., 2, :] = (0.0, 1.0)
+    n[..., 3, :] = (0.0, -1.0)
+    p[..., 0, :] = centers + np.array([half_x, 0.0], dtype)
+    p[..., 1, :] = centers - np.array([half_x, 0.0], dtype)
+    p[..., 2, :] = centers + np.array([0.0, half_y], dtype)
+    p[..., 3, :] = centers - np.array([0.0, half_y], dtype)
+    mask = np.zeros((N, K1, dims.H), bool)
     mask[..., :4] = True
     return n, p, mask
 
@@ -141,3 +162,55 @@ def batch_scenarios(dims: Dims, batch: int, seed=0, dtype=np.float64,
         random_parking_scenario(dims, rng, dtype=dtype,
                                 n_obstacles=n_obstacles)
         for _ in range(batch)])
+
+
+def gear_scenario(dims: Dims, wheel_base=2.85, dtype=np.float64) -> Scenario:
+    """Two-segment forward/reverse maneuver (S=2): drive forward, then back
+    into a lateral offset, which exercises the gear-position and -angle
+    decision variables. Uniform-N classes only (Dims.Ns=None)."""
+    assert dims.S == 2
+    if dims.Ns is not None:
+        raise NotImplementedError(
+            "per-segment piece classes (Dims.Ns) are not ported yet: "
+            "ROADMAP.md Queue 1 item 6")
+    N = dims.N
+    ini = state_to_flat((0.0, 0.0), 0.0, 1.0, 0.0, 0.0, wheel_base, 1,
+                        dtype=dtype)
+    mid_pos = np.array([8.0, 1.0])
+    mid_yaw = 0.5
+    mid_f = state_to_flat(mid_pos, mid_yaw, 0.2, 0.0, 0.0, wheel_base, 1,
+                          dtype=dtype)
+    mid_b = state_to_flat(mid_pos, mid_yaw, 0.2, 0.0, 0.0, wheel_base, -1,
+                          dtype=dtype)
+    end = state_to_flat((5.0, -2.0), 0.2, 0.5, 0.0, 0.0, wheel_base, -1,
+                        dtype=dtype)
+
+    def seg_inner(a, b):
+        frac = np.linspace(0.0, 1.0, N + 1)[1:-1]
+        return (np.asarray(a) + (np.asarray(b) - np.asarray(a))
+                * frac[:, None]).astype(dtype)
+
+    def seg_corridor(a, b):
+        grid = sample_grid(N, dims.K, dims.Kdes)
+        s_frac = (grid.frac / N).astype(dtype)              # [N, K1]
+        c = (np.asarray(a)
+             + (np.asarray(b) - np.asarray(a)) * s_frac[..., None])
+        return _corridor_from_boxes(c, 10.0, 10.0, dims, dtype)
+
+    n0, p0, m0 = seg_corridor((0.0, 0.0), mid_pos)
+    n1, p1, m1 = seg_corridor(mid_pos, (5.0, -2.0))
+
+    O, Po = dims.O, dims.Po
+    return Scenario(
+        ini_state=np.stack([ini, mid_b]),
+        fin_state=np.stack([mid_f, end]),
+        init_inner=np.stack([seg_inner((0.0, 0.0), mid_pos),
+                             seg_inner(mid_pos, (5.0, -2.0))]),
+        init_T=np.array([4.0, 4.0], dtype),
+        singul=np.array([1, -1], np.int32),
+        seg_mask=np.array([True, True]),
+        corr_n=np.stack([n0, n1]), corr_p=np.stack([p0, p1]),
+        corr_mask=np.stack([m0, m1]),
+        obs_coef=np.zeros((O, Po, 6, 2), dtype), obs_dt=np.ones((O,), dtype),
+        obs_rel_t0=np.zeros((O,), dtype), obs_mask=np.zeros((O,), bool),
+    )

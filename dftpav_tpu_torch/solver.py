@@ -9,14 +9,20 @@ Engines (same per-lane algorithm):
   "fused": the whole-solve CUDA kernel for CUDA tensors; CPU tensors run
       the plain round loop.
   "rounds": the plain PyTorch round loop on any device.
+  "bminor": the batch-minor engine (ops/bcost objective by autograd,
+      ops/blbfgs lockstep L-BFGS) on any device, any S with uniform N; its
+      corridor term launches the K2/K3 kernels for CUDA tensors when
+      OptConfig.corridor_backend is "pallas" or "auto".
 """
 
 from __future__ import annotations
 
 import torch
 
+from dftpav_tpu_torch import cost as cost_mod
+from dftpav_tpu_torch import minco
 from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
-from dftpav_tpu_torch.types import Dims, Scenario, Weights
+from dftpav_tpu_torch.types import Dims, Scenario, SolveResult, Weights
 
 
 def clamp_boundary_states(scen: Scenario, w: Weights) -> Scenario:
@@ -49,22 +55,82 @@ def clamp_boundary_states(scen: Scenario, w: Weights) -> Scenario:
     return scen._replace(ini_state=ini, fin_state=fin)
 
 
+def minimize_bminor(batch: Scenario, w: Weights, dims: Dims,
+                    cfg: PlannerConfig, max_iterations: int | None = None):
+    """The batch-minor solve up to the optimized variables: clamp, initial
+    guess, then ops/blbfgs.minimize_b on the scaled objective
+    ops/bcost.total_cost_b with its autograd gradient. Returns the
+    batch-minor scenario and the lbfgs.Result (x [dim, B])."""
+    from dftpav_tpu_torch.ops import bcost, blbfgs, kcost
+
+    kcost._no_tf32()
+    batch = clamp_boundary_states(batch, w)
+    x0 = cost_mod.initial_guess(batch, w, dims)             # [B, dim]
+    bm = bcost.to_bminor(batch)
+    scale = cfg.opt.cost_scale
+
+    def fun(xT):
+        with torch.enable_grad():
+            xg = xT.detach().requires_grad_(True)
+            fs = scale * bcost.total_cost_b(xg, bm, w, dims, cfg)[0]
+            (g,) = torch.autograd.grad(fs.sum(), xg)
+        return fs.detach(), g
+
+    return bm, blbfgs.minimize_b(fun, x0.T.contiguous(), cfg.opt.lbfgs,
+                                 max_iterations=max_iterations)
+
+
+def solve_batch_bminor(batch: Scenario, w: Weights, dims: Dims,
+                       cfg: PlannerConfig,
+                       max_iterations: int | None = None) -> SolveResult:
+    """Batch solve in the batch-minor layout, in the batch's dtype and on
+    its device: every tensor carries the scenario batch as its trailing
+    axis, and every lane steps in lockstep (minimize_bminor); then the
+    MINCO coefficients of the optimized variables."""
+    from dftpav_tpu_torch.ops import bcost
+
+    bm, res = minimize_bminor(batch, w, dims, cfg, max_iterations)
+    u = bcost.unpack_b(res.x, dims)
+    T = cost_mod.virtual_to_real(u.vt, w.mini_t)            # [S, B]
+    dT = T / dims.N
+    heads, tails = bcost.boundary_states_b(bm, u, w, dims)
+    maps = minco.maps_as(dims.N, res.x.dtype, res.x.device)
+    coeffs = bcost.generate_b(u.inner, dT, heads, tails, maps)
+    cost = res.f / cfg.opt.cost_scale
+    success = (res.status >= 0) & (cost < cfg.opt.reject_cost)
+    return SolveResult(coeffs=torch.movedim(coeffs, -1, 0), dT=dT.T,
+                       cost=cost, n_iters=res.n_iters, status=res.status,
+                       success=success)
+
+
 def make_solver(cfg: PlannerConfig, dims: Dims,
                 max_iterations: int | None = None, engine: str = "fused",
                 flags: EngineFlags | None = None):
     """Build a batched solver: (Scenario with leading [B], Weights) ->
-    SolveResult. `flags` defaults to EngineFlags() (lbfgs.hpp parity
-    semantics); benchmarks pass EngineFlags.tuned()."""
+    SolveResult. `flags` (the kcost engines' knobs, "fused" and "rounds")
+    defaults to EngineFlags() (lbfgs.hpp parity semantics); benchmarks pass
+    EngineFlags.tuned()."""
     from dftpav_tpu_torch.ops import kcost, pallas_solve
 
-    kcost.check_class(dims)
-    flags = flags or EngineFlags()
+    if engine == "bminor":
+        if dims.Ns is not None:
+            raise ValueError(
+                "per-segment piece classes (Dims.Ns) are implemented by the "
+                "kcost-based engines; the bminor engine assumes uniform N")
+
+        def solve_bminor(batch: Scenario, w: Weights):
+            return solve_batch_bminor(batch, w, dims, cfg,
+                                      max_iterations=max_iterations)
+
+        return solve_bminor
     impl = {"fused": pallas_solve.solve_batch_fused,
             "rounds": pallas_solve.solve_batch_rounds}.get(engine)
     if impl is None:
-        raise ValueError(f"unknown engine {engine!r}: 'fused' or 'rounds' "
-                         "(the other JAX engines are ROADMAP.md Queue 1 "
+        raise ValueError(f"unknown engine {engine!r}: 'fused', 'rounds' or "
+                         "'bminor' (the vmap engine is ROADMAP.md Queue 1 "
                          "item 9)")
+    kcost.check_class(dims)
+    flags = flags or EngineFlags()
 
     def solve(batch: Scenario, w: Weights):
         return impl(batch, w, dims, cfg, max_iterations=max_iterations,

@@ -19,7 +19,7 @@ class Dims:
     """Static problem dimensions.
 
     S: gear segments; N: pieces per segment; Ns: optional per-segment piece
-    counts (multi-gear classes, not yet ported); K / Kdes: interior and
+    counts (not yet ported); K / Kdes: interior and
     first/last-piece constraint resolution; H: corridor half-planes;
     O: dynamic obstacles; Po: pieces per obstacle trajectory.
     """
@@ -99,7 +99,9 @@ class Weights(NamedTuple):
     lse_alpha: torch.Tensor
 
 
-def weights_from_config(opt, dtype=torch.float32, device=None) -> Weights:
+def weights_from_config(opt, dtype=torch.float32, device="cuda") -> Weights:
+    """Weights from an OptConfig, on the card unless `device` says
+    otherwise (without a card, the default raises)."""
     return Weights(*(torch.tensor(float(getattr(opt, f)), dtype=dtype,
                                   device=device)
                      for f in Weights._fields))
@@ -116,12 +118,13 @@ class SolveResult(NamedTuple):
     success: torch.Tensor     # [B] bool
 
 
-def from_numpy(tree, cls=None, device=None, dtype=torch.float32):
+def from_numpy(tree, cls=None, device="cuda", dtype=torch.float32):
     """Carry arrays (e.g. the JAX package's Scenario / Weights after
     `np.asarray` on every leaf, or a packed decision matrix x [DP, B]) into
-    the port: floating leaves become `dtype` on `device`, bool and integer
-    leaves keep their kind. With `cls`, `tree` is a sequence of leaves in
-    that NamedTuple's field order."""
+    the port: floating leaves become `dtype` on `device` (the card unless
+    the caller names another device; without a card the default raises),
+    bool and integer leaves keep their kind. With `cls`, `tree` is a
+    sequence of leaves in that NamedTuple's field order."""
     def leaf(a):
         a = np.asarray(a)
         if a.dtype == np.bool_:

@@ -85,19 +85,49 @@ def test_make_consts_match():
                                    atol=1e-12)
 
 
+GEAR_KW = dict(S=2, N=5, K=8, Kdes=12, H=4, O=1, Po=8)
+
+
 @pytest.mark.parametrize("seed,O,dtype", [(7, 2, np.float32),
                                           (3, 2, np.float64),
-                                          (11, 0, np.float64)])
+                                          (11, 0, np.float64),
+                                          ("gear", 1, np.float32),
+                                          ("gear", 1, np.float64)])
 def test_batch_scenarios_bit_identical(seed, O, dtype):
-    kw = dict(CLASSES[0], O=O)
-    a = scenarios.batch_scenarios(Dims(**kw), 16, seed=seed, dtype=dtype,
+    if seed == "gear":                   # gear_scenario, uniform N
+        a = scenarios.gear_scenario(Dims(**GEAR_KW), dtype=dtype)
+        b = jscen.gear_scenario(JDims(**GEAR_KW), dtype=dtype)
+    else:
+        kw = dict(CLASSES[0], O=O)
+        a = scenarios.batch_scenarios(Dims(**kw), 16, seed=seed, dtype=dtype,
+                                      n_obstacles=O)
+        b = jscen.batch_scenarios(JDims(**kw), 16, seed=seed, dtype=dtype,
                                   n_obstacles=O)
-    b = jscen.batch_scenarios(JDims(**kw), 16, seed=seed, dtype=dtype,
-                              n_obstacles=O)
     assert a._fields == b._fields
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and x.shape == y.shape
         np.testing.assert_array_equal(x, y)
+
+
+def test_gear_initial_guess_exact():
+    """initial_guess at S=2 (gear positions and angles from fin_state) on
+    the clamped gear batch, against JAX exactly."""
+    dims, jdims = Dims(**GEAR_KW), JDims(**GEAR_KW)
+    npb = scenarios.stack_scenarios([scenarios.gear_scenario(dims)] * 3)
+    npb = npb._replace(fin_state=npb.fin_state
+                       * np.array([1.0, 30.0, 0.5])[:, None, None, None])
+    w = weights_from_config(config.OptConfig(), torch.float64, device="cpu")
+    jw = jweights(jconfig.OptConfig(), jnp.float64)
+    c = solver.clamp_boundary_states(
+        from_numpy(npb, Scenario, device="cpu", dtype=torch.float64), w)
+    jc = jax.vmap(lambda s: jsolver.clamp_boundary_states(s, jw))(
+        jax.tree.map(jnp.asarray, npb))
+    x0 = cost.initial_guess(c, w, dims)
+    jx0 = jax.vmap(lambda s: jcost.initial_guess(s, jw, jdims))(jc)
+    assert tuple(x0.shape) == (3, dims.dim)
+    np.testing.assert_array_equal(x0.numpy(), np.asarray(jx0))
+    u = cost.unpack(x0, dims)
+    np.testing.assert_array_equal(cost.pack(u).numpy(), x0.numpy())
 
 
 @pytest.fixture(scope="module")
@@ -106,9 +136,9 @@ def setup64():
     dims, jdims = Dims(**kw), JDims(**kw)
     cfg, jcfg = config.PlannerConfig(), jconfig.PlannerConfig()
     npb = scenarios.batch_scenarios(dims, 8, seed=3, n_obstacles=2)
-    w = weights_from_config(cfg.opt, torch.float64)
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
     jw = jweights(jcfg.opt, jnp.float64)
-    b = from_numpy(npb, Scenario, dtype=torch.float64)
+    b = from_numpy(npb, Scenario, device="cpu", dtype=torch.float64)
     jb = jax.tree.map(jnp.asarray, jscen.batch_scenarios(
         jdims, 8, seed=3, n_obstacles=2))
     return dims, jdims, w, jw, b, jb
@@ -173,9 +203,10 @@ def test_port_imports_no_jax():
         "dftpav_tpu_torch.__path__, 'dftpav_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'dftpav_tpu_torch.ops._cuda' in sys.modules\n"
+        "assert 'dftpav_tpu_torch.ops.pallas_penalty' in sys.modules\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=pathlib.Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 13
+    assert int(out.stdout.split()[-1]) >= 15

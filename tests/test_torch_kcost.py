@@ -60,11 +60,12 @@ def _case(name):
     sw = jkcost.StaticW.build(jw, jcfg)
     f, g = jkcost.eval_fg(jnp.asarray(x), jsc, jkc, sw, jdims, flags=jflags)
     port = dict(
-        x=from_numpy(x, dtype=torch.float64),
+        x=from_numpy(x, device="cpu", dtype=torch.float64),
         sc=from_numpy(jax.tree.map(np.asarray, jsc), kcost.KScenario,
-                      dtype=torch.float64),
+                      device="cpu", dtype=torch.float64),
         kc=kcost.make_consts(dims, torch.float64),
-        sw=kcost.StaticW.build(weights_from_config(cfg.opt, torch.float64),
+        sw=kcost.StaticW.build(weights_from_config(cfg.opt, torch.float64,
+                                                   device="cpu"),
                                cfg),
         dims=dims, flags=_flags(fl, config), D=D)
     jref = dict(f=np.asarray(f), g=np.asarray(g), x=x, sc=jsc, kc=jkc,

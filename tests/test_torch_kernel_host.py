@@ -154,10 +154,10 @@ def _doubles(vals):
 @functools.lru_cache(maxsize=None)
 def _setup(B=16, seed=3, sigma=1.0):
     cfg = PlannerConfig()
-    w = weights_from_config(cfg.opt, torch.float64)
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
     batch = from_numpy(scenarios.batch_scenarios(DIMS, B, seed=seed,
                                                  n_obstacles=2),
-                       Scenario, dtype=torch.float64)
+                       Scenario, device="cpu", dtype=torch.float64)
     _b, x0p, sc, kc, D = pallas_solve._prep(batch, w, DIMS, torch.float64,
                                             sigma)
     sw = kcost.StaticW.build(w, cfg)

@@ -11,7 +11,8 @@
     looser gate.
   * Dispatch: make_solver(engine="fused") on CPU tensors runs the plain
     loop without launching a kernel; asking for CUDA without a card
-    raises; multi-gear classes raise NotImplementedError.
+    raises; multi-gear classes raise NotImplementedError in the kcost
+    engines, and the bminor engine rejects Dims.Ns with ValueError.
 
 The class has one moving obstacle (O=1): the JAX reference compiles the
 obstacle block once per obstacle (~12 s each on the CPU), and the
@@ -71,11 +72,12 @@ def _path12(tuned):
                             flags=jflags)
     ref = jax.tree.map(np.asarray, ref)
     out = pallas_solve._solve_rounds(
-        from_numpy(np.asarray(x0p), dtype=torch.float64),
+        from_numpy(np.asarray(x0p), device="cpu", dtype=torch.float64),
         from_numpy(jax.tree.map(np.asarray, jsc), kcost.KScenario,
-                   dtype=torch.float64),
+                   device="cpu", dtype=torch.float64),
         kcost.make_consts(DIMS, torch.float64),
-        kcost.StaticW.build(weights_from_config(cfg.opt, torch.float64), cfg),
+        kcost.StaticW.build(weights_from_config(cfg.opt, torch.float64,
+                                                device="cpu"), cfg),
         DIMS, cfg.opt.lbfgs, 12, flags)
     return out, ref
 
@@ -103,8 +105,8 @@ def _e2e():
         jax.tree.map(jnp.asarray, npb), jweights(jcfg.opt, jnp.float64),
         JDIMS, jcfg, max_iterations=150, flags=jflags)
     res = pallas_solve.solve_batch_rounds(
-        from_numpy(npb, Scenario, dtype=torch.float64),
-        weights_from_config(cfg.opt, torch.float64), DIMS, cfg,
+        from_numpy(npb, Scenario, device="cpu", dtype=torch.float64),
+        weights_from_config(cfg.opt, torch.float64, device="cpu"), DIMS, cfg,
         max_iterations=150, flags=flags)
     return res, jax.tree.map(np.asarray, ref)
 
@@ -124,10 +126,10 @@ def test_solve_batch_rounds_end_to_end_matches_jax():
 
 def test_fused_engine_on_cpu_runs_plain_loop_without_kernels():
     cfg = config.PlannerConfig()
-    w = weights_from_config(cfg.opt, torch.float64)
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
     batch = from_numpy(scenarios.batch_scenarios(DIMS, 8, seed=9,
                                                  n_obstacles=1),
-                       Scenario, dtype=torch.float64)
+                       Scenario, device="cpu", dtype=torch.float64)
     kcost.eval_fg.launches = 0
     pallas_solve.solve_batch_fused.launches = 0
     flags = config.EngineFlags.tuned()
@@ -165,5 +167,12 @@ def test_multigear_raises_not_implemented():
             solver.make_solver(cfg, dims)
         with pytest.raises(NotImplementedError):
             pallas_solve.solve_batch_rounds(None, None, dims, cfg)
+    # the bminor engine rejects per-segment piece classes, as in JAX, and
+    # takes uniform-N multi-segment classes
     with pytest.raises(ValueError):
-        solver.make_solver(cfg, DIMS, engine="bminor")
+        solver.make_solver(cfg, Dims(S=1, N=8, K=16, Kdes=32, H=4, O=1, Po=8,
+                                     Ns=(4,)), engine="bminor")
+    assert callable(solver.make_solver(
+        cfg, Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8), engine="bminor"))
+    with pytest.raises(ValueError):
+        solver.make_solver(cfg, DIMS, engine="vmap")
