@@ -1,25 +1,46 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py            # the full check (B=8192 main path)
-    python3 chip_smoke.py --quick    # smaller batches, for a first build
+    python3 chip_smoke.py --quick    # main path at B=1024, for a first build
 
 Phases (each prints one JSON line; any failure raises, so the script exits
 non-zero and prints no final result):
   1. device: the card's name and `nvidia-smi` name / power limit;
-     the kernels are built from dftpav_tpu_torch/csrc (nvcc, sm_90a);
+     the kernels are built from dftpav_tpu_torch/csrc (nvcc, sm_90a),
+     with their ptxas report and machine instructions (cuobjdump);
   2. kernel A (objective + gradient) against the plain autograd version,
      float32, bench fixture at B=1024: per lane |df|/|f| <= 1e-4 and
      max|dg| <= 1e-3 * max(1, max|g_plain|);
   3. kernel B (the whole solve) against the plain round loop, B=1024,
      150 iterations, tuned flags: both success rates >= 0.99 and within
-     0.005, cost p50 within 2%; the share of lanes whose 12-iteration
-     (status, k, evals) agree exactly is printed, not gated; then a
-     "kernel_times" line: each kernel alone beside its plain version;
+     0.005, cost p50 within 2%, and at least 90% of the lanes take the
+     same 12-iteration path (status, k and evals equal); then the same
+     checks for a class whose shared memory leaves fewer than 16 warps
+     per block (8 obstacles) at B=2048, more lanes than the grid has
+     warps: kernel A per lane |df|/|f| <= 1e-4 against plain float32,
+     and max|dg| within phase 2's 1e-3 of plain float32 or, where float32
+     cannot resolve a lane (a collision's cancelling terms), within
+     max(1e-3, 4x plain float32's own error) of plain float64; kernel B's
+     12-iteration paths (at least 80% equal); and kernel B's lanes that
+     warps took after solving another lane equal to the same lanes solved
+     alone, bitwise;
+     then a "kernel_times" line: each kernel alone beside its plain
+     version, with kernel B's lane evaluations, ms per 10^6 of them,
+     evaluations per lane p50 / p99 / max, and both kernels' registers,
+     spill bytes (ptxas) and resident warps per SM (the occupancy API);
+     the outputs timed are gated too: kernel A as at 8 obstacles, kernel B
+     against the plain round loop as above, its timed launches bitwise
+     equal, and where the batch has more lanes than the grid has warps,
+     the lanes taken second equal to the same lanes solved alone;
   4. the main path, solver.make_solver(engine="fused") on
      scenarios.batch_scenarios(B=8192, seed=7, float32, 2 obstacles),
      timed with CUDA events (one warm-up, best of 3), beside the plain
      round loop at B=1024; gate success >= 0.99 and every kernel
-     of the path launched; "kernel_times" again at this batch;
+     of the path launched; "kernel_times" again at this batch, gated as
+     in phase 3 (--quick: the main path at B=1024; the checks keep
+     B=1024); only with --parent (below), kernel B at this batch beside
+     another build's, on input variants, and its device time under
+     torch.profiler;
   5. kernels K2 / K3 (the corridor penalty's forward and backward) against
      their plain versions, float32, on the operands the bminor objective
      gives them: the bench fixture at B=1024 (x0 plus numpy noise) and a
@@ -29,23 +50,37 @@ non-zero and prints no final result):
      against float64, max|d - d64| over max(1, max|d64|), taken over the
      batch and per lane, no more than max(1e-3, 4x the plain float32
      pair's same error) (float32 cannot resolve the hinge's smoothing band
-     at B=8192; errors against plain float32 printed); also total_cost_b's value and x-gradient with corridor_backend
-     "pallas" against "xla", and "auto" (which must launch K2) against
+     at B=8192; errors against plain float32 printed); also total_cost_b's
+     value and x-gradient with corridor_backend "pallas" against "xla", and "auto" (which must launch K2) against
      "pallas" (the phase 2 gate); then a "kernel_times" line for K2 / K3
      on the B=8192 operands;
-  6. the second path, solver.make_solver(engine="bminor") with
-     corridor_backend "pallas" on the B=8192 fixture, 150 iterations (a
-     5-iteration warm-up at B=256, then one run timed with CUDA events),
-     beside the same call with "xla" (no kernel on that path) on the first
-     1024 lanes; gates success >= 0.99, cost p50 of those lanes within 2%
-     of the "xla" run's, both corridor kernels launched, finite
-     coefficients of shape (B, 1, 8, 6, 2).
+  6. the second path, solver.make_solver(engine="bminor") with the
+     default corridor backend ("auto", which must reach K2/K3 on its own)
+     on the B=8192 fixture, 150 iterations (a 5-iteration warm-up at
+     B=256, then one run timed with CUDA events), beside the same call
+     with "xla" (no kernel on that path) on the first 1024 lanes; gates
+     success >= 0.99, cost p50 of those lanes within 2% of the "xla"
+     run's, both corridor kernels launched, finite coefficients of shape
+     (B, 1, 8, 6, 2).
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
-3.35 TB/s, and the float32 operations over 67 TFLOP/s, both for the inputs
-of the timed call), and, last, {"ok": true, "device": ...}.
+3.35 TB/s, and the operations, float32 over 67 TFLOP/s plus the float64
+sample maps of kernels A and B over 34 TFLOP/s, both for the inputs of the
+timed call), and, last, {"ok": true, "device": ...}.
 Needs one CUDA card; imports nothing of JAX.
+
+    python3 chip_smoke.py --parent DIR
+
+also times kernel B at the main path's batch as built from DIR (another
+checkout's dftpav_tpu_torch/csrc, for instance the parent commit's,
+unpacked with `git archive` into a gitignored directory) in turns with
+this package's (package, other, other, package), on the fixture and on
+variants of its inputs that each remove one cost: no_corridor (H = 0),
+no_obstacles (O = 0), replicated8 (B / 8 scenarios, each on 8 consecutive
+lanes, so lanes that share a warp or a block take the same path), with
+that build's ptxas registers, spills and machine instructions; then
+traces one launch of kernels A and B with torch.profiler.
 """
 
 from __future__ import annotations
@@ -87,26 +122,68 @@ def _cuda_ms(fn, reps=3, warmup=1):
     return best
 
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
-# tensor cores FLOP/s
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; float32 and float64
+# outside the tensor cores, FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-# float32 operations per sample row, counted from the kernels' sources at
-# H = 4 (the hinge's linear branch): K2 (csrc/penalty.cuh corridor_fwd_row),
-# K3 (corridor_bwd_row), and one objective evaluation of kernel A (csrc/
-# kcost.cuh lane_fg: sample maps 156, corridor with gradient 440,
-# feasibility 90, chain back to the coefficients 156) without the
-# obstacle block, whose work depends on the data (a lower bound); per lane
-# and evaluation kernel A adds the jerk form and its gradient (~1,400), and
-# per iteration kernel B the two-loop recursion over m = 16 pairs (~2,000).
-FLOP_ROW_K2, FLOP_ROW_K3, FLOP_ROW_A = 186, 460, 860
+PEAK_F64_S = 34e12
+# operations per sample row, counted from the kernels' sources at H = 4
+# (the hinge's linear branch): K2 (csrc/penalty.cuh corridor_fwd_row), K3
+# (corridor_bwd_row), and one objective evaluation of kernels A and B
+# (csrc/kcost.cuh row_pass: the sample maps, 156 in float64; corridor with
+# gradient 440, feasibility 90, chain back to the coefficients 156 in
+# float32) without the obstacle block, whose work depends on the data (a
+# lower bound); per lane and evaluation the jerk form and its gradient
+# (~1,400), and per iteration of kernel B the two-loop recursion over
+# m = 16 pairs (~2,000).
+FLOP_ROW_K2, FLOP_ROW_K3, FLOP_ROW_A, FLOP64_ROW_A = 186, 460, 704, 156
 FLOP_LANE_A, FLOP_ITER_B = 1400, 2000
 
 
-def _bound(nbytes, flops):
-    """(bound_ms, bound_by) for work that moves nbytes and does flops."""
-    t_b, t_o = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+def _bound(nbytes, flops, flops64=0):
+    """(bound_ms, bound_by) for work that moves nbytes and does flops in
+    float32 and flops64 in float64."""
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_o = (flops / PEAK_F32_S + flops64 / PEAK_F64_S) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def _ptxas(log):
+    """{kernel function name: (registers, spill store bytes)} from an
+    `nvcc -Xptxas -v` log."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln and name:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in ln and "registers" in ln and name:
+            out[name] = (int(ln.split("Used")[1].split("registers")[0]),
+                         spill)
+            name, spill = None, 0
+    return out
+
+
+def _sass_sizes(so):
+    """{kernel function: machine instructions} of the library `so`, from
+    the toolkit's cuobjdump (None where the toolkit lacks it)."""
+    import os
+    import re
+
+    exe = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                       "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "--dump-sass", str(so)], capture_output=True,
+                         text=True, timeout=300).stdout
+    sizes, name = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            sizes[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            sizes[name] += 1
+    return sizes
 
 
 def _nbytes(*ts):
@@ -142,15 +219,63 @@ def _rel_errs(f, g, f_ref, g_ref):
     return rel_f, rel_g
 
 
+def _other_kernel_b(csrc):
+    """(library path, kernel B) built from the directory csrc, kernel B as
+    a function with the arguments and return of _cuda.launch_solve_fused.
+    A build that exports dftpav_kernel_info has this package's C
+    interface; an older one (before the lane queue) has no queue and
+    planes arguments."""
+    import ctypes
+    import pathlib
+
+    from dftpav_tpu_torch.ops import _cuda, kcost
+
+    so = _cuda.build(pathlib.Path(csrc))
+    raw = ctypes.CDLL(str(so))
+    if hasattr(raw, "dftpav_kernel_info"):
+        lib = _cuda.load(so)
+        return so, lambda *a: _cuda.solve_fused_with(lib, *a)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    raw.dftpav_solve_fused.argtypes = [P] * 14 + [I] * 9 + [P] * 4
+    raw.dftpav_solve_fused.restype = I
+
+    def solve(x0, f0, g0, sc, kc, sw, dims, sigma, p, max_iter, flags):
+        B, R = x0.shape[1], kcost.r_rows(dims)
+        Q = kc.Q[0, :dims.N + 5].contiguous()
+        x, f = torch.empty_like(x0), torch.empty_like(f0)
+        info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
+        w = _cuda._floats(_cuda.weight_vector(sw, sigma),
+                          raw.dftpav_weight_len())
+        lp = _cuda._floats(_cuda.lbfgs_vector(p, flags),
+                           raw.dftpav_lbfgs_len())
+        rc = raw.dftpav_solve_fused(
+            x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
+            sc.misc.data_ptr(), sc.corr_n.data_ptr(), sc.corr_p.data_ptr(),
+            sc.corr_m.data_ptr(), sc.obs_c.data_ptr(), kc.P.data_ptr(),
+            Q.data_ptr(), kc.gridc.data_ptr(), ctypes.addressof(w),
+            ctypes.addressof(lp), int(max_iter), int(p.max_linesearch),
+            int(p.past), int(bool(flags.adaptive_step)), B, R, dims.H,
+            dims.O, dims.Po, x.data_ptr(), f.data_ptr(), info.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{csrc}: dftpav_solve_fused: CUDA error {rc}")
+        return x, f, info
+    return so, solve
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="main path at B=1024 and checks at B=256, for a "
-                         "first build")
+                    help="main path at B=1024 (the checks keep B=1024), "
+                         "for a first build")
     ap.add_argument("--out", default=None,
                     help="also write every phase's numbers to this JSON file")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="also time kernel B built from this csrc directory "
+                         "beside the package's, on input variants, and "
+                         "trace it with torch.profiler")
     args = ap.parse_args(argv)
-    B_main, B_chk = (1024, 256) if args.quick else (8192, 1024)
+    B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
     iters = 150
 
     # ---- 1. device and build ----
@@ -175,11 +300,22 @@ def main(argv=None) -> int:
     so = _cuda.build()
     _cuda.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    log = so.with_suffix(".log").read_text()
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    regs = _ptxas(log)
+
+    def regs_of(tag):
+        """(registers, spill store bytes) of the kernel whose name holds
+        tag."""
+        hits = [v for k, v in regs.items() if tag in k]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas report: {tag}: {hits}")
+        return hits[0]
     _emit("device", device=kind, nvidia_smi=smi.splitlines()[0],
           torch=torch.__version__, cuda=torch.version.cuda,
-          build_s=round(build_s, 3), ptxas=ptxas)
+          build_s=round(build_s, 3), ptxas=ptxas,
+          machine_instructions=_sass_sizes(so))
 
     dims = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
     cfg = PlannerConfig()
@@ -221,6 +357,67 @@ def main(argv=None) -> int:
         raise AssertionError("kernel A disagrees with the plain objective")
 
     # ---- 3. kernel B vs plain round loop ----
+    p = cfg.opt.lbfgs
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def success_cost(status, f):
+        """(success share, cost p50) of raw solver outputs, as _finalize
+        reports them."""
+        cost = f / cfg.opt.cost_scale
+        ok = (status >= 0) & (cost < cfg.opt.reject_cost)
+        return ok.float().mean().item(), cost.median().item()
+
+    def a_gate(f, g, x, sc_, kc_, dims_, plain):
+        """Kernel A's (f, g) at x against the plain objective (`plain`, its
+        float32 (f, g)): per lane |df|/|f| <= 1e-4 against float32, and
+        max|dg| <= 1e-3 * max(1, max|g|) against float32 or, where float32
+        cannot resolve a lane (a collision's cancelling terms), against
+        float64 no more than max(1e-3, 4x the plain float32 version's
+        error). (numbers, ok)"""
+        f64, g64 = kcost.eval_fg_plain(
+            x.double(), kcost.KScenario(*(a.double() for a in sc_)),
+            kcost.KConsts(*(a.double() for a in kc_)), sw, dims_, tuned)
+        rel_f, rel_g = _rel_errs(f, g, *plain)
+        rel_g64 = _rel_errs(f.double(), g.double(), f64, g64)[1]
+        plain_g64 = _rel_errs(plain[0].double(), plain[1].double(), f64,
+                              g64)[1]
+        ok = rel_f <= 1e-4 and (rel_g <= 1e-3
+                                or rel_g64 <= max(1e-3, 4.0 * plain_g64))
+        return {"rel_f_max_a": rel_f, "rel_g_max_a": rel_g,
+                "rel_g_max_a_vs_f64": rel_g64,
+                "plain_f32_rel_g_max_vs_f64": plain_g64}, ok
+
+    def paths12(x0, f0, g0, sc_, kc_, dims_):
+        """Kernel B and the plain round loop, 12 iterations from the same
+        x0 (raw: the eval counts are not in SolveResult): the share of lanes
+        whose (status, k, evals) agree and the largest |df| among them."""
+        _x, fb, info = _cuda.launch_solve_fused(x0, f0, g0, sc_, kc_, sw,
+                                                dims_, 0.25, p, 12, tuned)
+        raw = pallas_solve._solve_rounds(x0, sc_, kc_, sw, dims_, p, 12,
+                                         tuned)
+        same = ((info[0] == raw.status) & (info[1] == raw.k.clamp(max=12))
+                & (info[2] == raw.n_evals))
+        err = (fb - raw.fp)[same].abs().max().item() \
+            if bool(same.any()) else None
+        return same.float().mean().item(), err
+
+    def alone_equal(x0, f0, g0, sc_, kc_, dims_, out):
+        """Whether the lanes of `out` (kernel B on the whole batch) that the
+        grid's warps took after solving another lane, the last min(512,
+        B - warps), equal the same lanes solved alone (one warp each),
+        bitwise; None where the batch has no more lanes than warps."""
+        warps = _cuda.kernel_info(dims_, "B")["resident_warps_per_sm"] * n_sm
+        n = min(512, x0.shape[1] - warps)
+        if n <= 0:
+            return None
+
+        def cut(t):
+            return t[..., -n:].contiguous()
+        alone = _cuda.launch_solve_fused(
+            cut(x0), cut(f0), cut(g0), kcost.KScenario(*map(cut, sc_)), kc_,
+            sw, dims_, 0.25, p, iters, tuned)
+        return all(torch.equal(cut(u), v) for u, v in zip(out, alone))
+
     res_k = pallas_solve.solve_batch_fused(batch, w, dims, cfg, iters,
                                            flags=tuned)
     res_p = pallas_solve.solve_batch_rounds(batch, w, dims, cfg, iters,
@@ -229,19 +426,10 @@ def main(argv=None) -> int:
     s_p = res_p.success.float().mean().item()
     c_k = res_k.cost.median().item()
     c_p = res_p.cost.median().item()
-    # 12-iteration paths, raw (the eval counts are not in SolveResult)
     f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, dims, tuned)
-    xb, fb, info = _cuda.launch_solve_fused(x0p, f0, g0, sc, kc, sw, dims,
-                                            0.25, cfg.opt.lbfgs, 12, tuned)
-    raw_p = pallas_solve._solve_rounds(x0p, sc, kc, sw, dims, cfg.opt.lbfgs,
-                                       12, tuned)
-    same_raw = ((info[0] == raw_p.status) & (info[1] == raw_p.k.clamp(max=12))
-                & (info[2] == raw_p.n_evals))
-    share12 = same_raw.float().mean().item()
-    err_b = (fb - raw_p.fp)[same_raw].abs().max().item() \
-        if bool(same_raw.any()) else None
+    share12, err_b = paths12(x0p, f0, g0, sc, kc, dims)
     ok_b = (s_k >= 0.99 and s_p >= 0.99 and abs(s_k - s_p) <= 0.005
-            and abs(c_k - c_p) <= 0.02 * abs(c_p)
+            and abs(c_k - c_p) <= 0.02 * abs(c_p) and share12 >= 0.9
             and torch.isfinite(res_k.coeffs).all())
     _emit("kernel_B_vs_plain", B=B_chk, iters=iters,
           success_kernel=s_k, success_plain=s_p, cost_p50_kernel=c_k,
@@ -252,14 +440,54 @@ def main(argv=None) -> int:
                                    for q in (50, 90, 99)],
           share_12iter_status_k_evals_equal=share12,
           max_abs_err_f_12iter_matched=err_b,
-          tol="success>=0.99 both, |dsuccess|<=0.005, cost p50 within 2%",
+          tol="success>=0.99 both, |dsuccess|<=0.005, cost p50 within 2%, "
+              "12-iteration paths equal on >=90% of the lanes",
           ok=bool(ok_b))
     if not ok_b:
         raise AssertionError("kernel B disagrees with the plain round loop")
 
+    # a class whose per-warp slice of shared memory leaves fewer than 16
+    # warps per block (8 obstacles), at more lanes than the grid has warps
+    dims8 = dataclasses.replace(dims, O=8)
+    b8 = from_numpy(scenarios.batch_scenarios(
+        dims8, 2048, seed=11, dtype=np.float32, n_obstacles=8), Scenario,
+        device=dev, dtype=torch.float32)
+    _b, x08, sc8, kc8, _D = pallas_solve._prep(b8, w, dims8, torch.float32,
+                                               0.25)
+    info8 = {k: _cuda.kernel_info(dims8, k) for k in "AB"}
+    f8, g8 = _cuda.launch_eval_fg(x08, sc8, kc8, sw, dims8, 0.25)
+    errs8, ok_a8 = a_gate(f8, g8, x08, sc8, kc8, dims8, kcost.eval_fg_plain(
+        x08, sc8, kc8, sw, dims8, tuned))
+    out8 = _cuda.launch_solve_fused(x08, f8, g8, sc8, kc8, sw, dims8, 0.25,
+                                    p, iters, tuned)
+    alone8 = alone_equal(x08, f8, g8, sc8, kc8, dims8, out8)
+    share8, err8 = paths12(x08, f8, g8, sc8, kc8, dims8)
+    s8, c8 = success_cost(out8[2][0], out8[1])
+    ok8 = (all(i["resident_warps_per_sm"] < 16 for i in info8.values())
+           and ok_a8 and share8 >= 0.8 and alone8 is True
+           and torch.isfinite(out8[0]).all().item())
+    _emit("kernels_A_B_fewer_warps", O=8, B=2048, kernel_info=info8,
+          **errs8, share_12iter_status_k_evals_equal=share8,
+          max_abs_err_f_12iter_matched=err8,
+          reused_lanes_equal_alone=alone8, success_kernel=s8,
+          cost_p50_kernel=c8,
+          tol="fewer than 16 warps per SM; kernel A |df|/|f|<=1e-4, "
+              "max|dg|<=1e-3*max(1,max|g|) vs plain f32, or vs f64 <= "
+              "max(1e-3, 4x plain f32's); 12-iteration paths equal on >=80% "
+              "of the lanes; lanes taken second bitwise equal alone",
+          ok=bool(ok8))
+    if not ok8:
+        raise AssertionError("kernels A/B at 8 obstacles (fewer warps per "
+                             "block) disagree")
+
     def kernel_times(b):
         """CUDA-event ms of kernel A and kernel B (150 iterations) at the
-        main path's inputs for batch b, beside their plain versions."""
+        main path's inputs for batch b, beside their plain versions, with
+        kernel B's evaluation counts, both kernels' registers, spills and
+        occupancy. The outputs timed are gated: kernel A by a_gate, kernel
+        B against the plain round loop as in phase 3, its timed launches
+        bitwise equal, and its lanes taken second by a warp equal to the
+        same lanes solved alone."""
         _b, x0b, scb, kcb, _D = pallas_solve._prep(b, w, dims, torch.float32,
                                                    0.25)
         f0b, g0b = _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25)
@@ -267,33 +495,78 @@ def main(argv=None) -> int:
         t = {"B": Bb, "ms_a": _cuda_ms(
             lambda: _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25),
             reps=20)}
-        t["plain_ms_a"] = _cuda_ms(lambda: kcost.eval_fg_plain(
-            x0b, scb, kcb, sw, dims, tuned), reps=5)
-        outb = {}
+        keep = {}
+
+        def plain_a():
+            keep["a"] = kcost.eval_fg_plain(x0b, scb, kcb, sw, dims, tuned)
+
+        def plain_b():
+            keep["b"] = pallas_solve._solve_rounds(x0b, scb, kcb, sw, dims,
+                                                   p, iters, tuned)
+
+        t["plain_ms_a"] = _cuda_ms(plain_a, reps=5)
+        outs = []
 
         def run_b():
-            outb["r"] = _cuda.launch_solve_fused(
-                x0b, f0b, g0b, scb, kcb, sw, dims, 0.25, cfg.opt.lbfgs,
-                iters, tuned)
+            outs.append(_cuda.launch_solve_fused(
+                x0b, f0b, g0b, scb, kcb, sw, dims, 0.25, p, iters, tuned))
 
         t["ms_b"] = _cuda_ms(run_b, reps=3)
+        same = all(torch.equal(u, v) for o in outs[1:]
+                   for u, v in zip(outs[0], o))
         # bounds: inputs read once, outputs written once; operations of the
         # weighted rows (kernel B: the evaluations and iterations this run
         # needed, its n_evals counting the initial one made by kernel A)
         rows = int((kcb.gridc[0, 0] > 0).sum())
         ins = _nbytes(x0b, *scb, kcb.P, kcb.Q[0, :dims.N + 5], kcb.gridc)
         t["bound_ms_a"], t["bound_by_a"] = _bound(
-            ins + _nbytes(f0b, g0b), Bb * (rows * FLOP_ROW_A + FLOP_LANE_A))
-        xb, fb, infob = outb["r"]
-        evals = int(infob[2].sum()) - Bb
+            ins + _nbytes(f0b, g0b), Bb * (rows * FLOP_ROW_A + FLOP_LANE_A),
+            Bb * rows * FLOP64_ROW_A)
+        xb, fb, infob = outs[0]
+        evals_lane = infob[2].float() - 1.0
+        evals = int(evals_lane.sum())
         t["bound_ms_b"], t["bound_by_b"] = _bound(
             ins + _nbytes(f0b, g0b, xb, fb, infob),
             evals * (rows * FLOP_ROW_A + FLOP_LANE_A)
-            + int(infob[1].sum()) * FLOP_ITER_B)
-        t["plain_ms_b"] = _cuda_ms(lambda: pallas_solve._solve_rounds(
-            x0b, scb, kcb, sw, dims, cfg.opt.lbfgs, iters, tuned),
-            reps=1, warmup=0)
+            + int(infob[1].sum()) * FLOP_ITER_B, evals * rows * FLOP64_ROW_A)
+        t["lane_evals_a"] = Bb
+        t["lane_evals_b"] = evals
+        t["ms_per_1e6_lane_evals_a"] = t["ms_a"] / (Bb / 1e6)
+        t["ms_per_1e6_lane_evals_b"] = t["ms_b"] / (evals / 1e6)
+        t["evals_per_lane_b_p50_p99_max"] = [
+            _pct(evals_lane, 50), _pct(evals_lane, 99),
+            float(evals_lane.max())]
+        for tag, name in (("a", "eval_fg_kernel"), ("b", "solve_kernel")):
+            info = _cuda.kernel_info(dims, tag.upper())
+            t[f"registers_{tag}"], t[f"spill_store_bytes_{tag}"] = \
+                regs_of(name)
+            t[f"local_bytes_{tag}"] = info["local_bytes"]
+            t[f"resident_warps_per_sm_{tag}"] = \
+                info["resident_warps_per_sm"]
+        t["b_launches_bitwise_equal"] = same
+        t["plain_ms_b"] = _cuda_ms(plain_b, reps=1, warmup=0)
+        errs_a, ok_a = a_gate(f0b, g0b, x0b, scb, kcb, dims, keep["a"])
+        t.update(errs_a)
+        t["success_b"], t["cost_p50_b"] = success_cost(infob[0], fb)
+        t["success_plain_b"], t["cost_p50_plain_b"] = success_cost(
+            keep["b"].status, keep["b"].fp)
+        t["share_12iter_status_k_evals_equal"], _ = paths12(
+            x0b, f0b, g0b, scb, kcb, dims)
+        t["reused_lanes_equal_alone"] = alone_equal(x0b, f0b, g0b, scb, kcb,
+                                                    dims, outs[0])
+        ok = (ok_a and same and t["reused_lanes_equal_alone"] is not False
+              and t["success_b"] >= 0.99 and t["success_plain_b"] >= 0.99
+              and abs(t["success_b"] - t["success_plain_b"]) <= 0.005
+              and abs(t["cost_p50_b"] - t["cost_p50_plain_b"])
+              <= 0.02 * abs(t["cost_p50_plain_b"])
+              and t["share_12iter_status_k_evals_equal"] >= 0.9)
+        t["tol"] = ("kernel A as at 8 obstacles, kernel B as phase 3, "
+                    "launches and lanes taken second bitwise equal")
+        t["ok"] = bool(ok)
         _emit("kernel_times", **t)
+        if not ok:
+            raise AssertionError(f"kernel_times at B={Bb}: the outputs timed "
+                                 f"fail their gate")
         return t
 
     kernel_times(batch)
@@ -341,6 +614,84 @@ def main(argv=None) -> int:
           ok=bool(ok_main))
     if not ok_main:
         raise AssertionError("main path failed its gate")
+
+    # ---- --parent: kernel B beside another build, on input variants, and
+    # under torch.profiler ----
+    def variant_inputs(variant):
+        """(dims, x0, scenario, consts) of the main path's batch changed as
+        `variant` says (see the module docstring)."""
+        npb = scenarios.batch_scenarios(
+            dims, B_main // 8 if variant == "replicated8" else B_main,
+            seed=7, dtype=np.float32, n_obstacles=2)
+        if variant == "replicated8":
+            npb = Scenario(*(np.repeat(a, 8, axis=0) for a in npb))
+        _b, x0v, scv, kcv, _D = pallas_solve._prep(
+            from_numpy(npb, Scenario, device=dev, dtype=torch.float32), w,
+            dims, torch.float32, 0.25)
+        if variant == "no_corridor":
+            return (dataclasses.replace(dims, H=0), x0v,
+                    scv._replace(corr_n=scv.corr_n[:0], corr_p=scv.corr_p[:0],
+                                 corr_m=scv.corr_m[:0]), kcv)
+        if variant == "no_obstacles":
+            return (dataclasses.replace(dims, O=0), x0v,
+                    scv._replace(obs_c=scv.obs_c[:1].contiguous()), kcv)
+        return dims, x0v, scv, kcv
+
+    def parent_ab():
+        so_other, other = _other_kernel_b(args.parent)
+        _emit("parent_build", csrc=args.parent,
+              registers_spill_store_bytes=_ptxas(
+                  so_other.with_suffix(".log").read_text()),
+              machine_instructions=_sass_sizes(so_other))
+        turns = (("package", _cuda.launch_solve_fused), ("parent", other),
+                 ("parent", other), ("package", _cuda.launch_solve_fused))
+        for variant in ("base", "no_corridor", "no_obstacles", "replicated8"):
+            dims_v, x0v, scv, kcv = variant_inputs(variant)
+            f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims_v, 0.25)
+            ms_a = _cuda_ms(lambda: _cuda.launch_eval_fg(
+                x0v, scv, kcv, sw, dims_v, 0.25), reps=20)
+            runs = []
+            for name, solve_b in turns:
+                keep = {}
+
+                def run():
+                    keep["r"] = solve_b(x0v, f0v, g0v, scv, kcv, sw, dims_v,
+                                        0.25, p, iters, tuned)
+
+                ms = _cuda_ms(run, reps=2)
+                _x, f_v, info_v = keep["r"]
+                evals = info_v[2].float() - 1.0      # kernel A made the first
+                runs.append({
+                    "build": name, "ms": ms, "lane_evals": int(evals.sum()),
+                    "ms_per_1e6_lane_evals": ms / (float(evals.sum()) / 1e6),
+                    "evals_per_lane_p50_p99_max": [
+                        _pct(evals, 50), _pct(evals, 99), float(evals.max())],
+                    "iters_p50_p90_p99": [_pct(info_v[1].float(), q)
+                                          for q in (50, 90, 99)],
+                    "success_cost_p50": success_cost(info_v[0], f_v)})
+            _emit("kernel_B_ab", variant=variant, B=B_main, ms_a=ms_a,
+                  ms_per_1e6_lane_evals_a=ms_a / (B_main / 1e6), runs=runs)
+
+        from torch.profiler import ProfilerActivity, profile
+
+        dims_v, x0v, scv, kcv = variant_inputs("base")
+        f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, 0.25)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, 0.25)
+            _cuda.launch_solve_fused(x0v, f0v, g0v, scv, kcv, sw, dims, 0.25,
+                                     p, iters, tuned)
+            torch.cuda.synchronize()
+        rows = [{"name": ev.key[:80], "count": ev.count, "device_ms": getattr(
+            ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            / 1e3} for ev in prof.key_averages()]
+        _emit("profile", B=B_main, device_time=sorted(
+            (r for r in rows if r["device_ms"] > 0),
+            key=lambda r: -r["device_ms"])[:12])
+
+    if args.parent:
+        parent_ab()
 
     # ---- 5. kernels K2 / K3 vs plain ----
     from dftpav_tpu_torch import cost
@@ -497,9 +848,10 @@ def main(argv=None) -> int:
         _nbytes(*ops8, gbar8) + _nbytes(*ops8[:3]), FLOP_ROW_K3 * rb)
     _emit("kernel_times", **t_pen)
 
-    # ---- 6. the second path: the bminor engine ----
-    solve_p = solver.make_solver(cfg_p, dims, iters, engine="bminor")
-    solver.make_solver(cfg_p, dims, 5, engine="bminor")(fixture(256), w)
+    # ---- 6. the second path: the bminor engine, default corridor backend
+    # ("auto": the kernels for CUDA tensors) ----
+    solve_p = solver.make_solver(cfg, dims, iters, engine="bminor")
+    solver.make_solver(cfg, dims, 5, engine="bminor")(fixture(256), w)
     torch.cuda.synchronize()
     pp.corridor_fwd.launches = 0
     pp.corridor_bwd.launches = 0

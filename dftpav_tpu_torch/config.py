@@ -91,8 +91,10 @@ class OptConfig:
     # "xla" the plain broadcast form, "pallas" the CorridorPenalty function
     # of ops/pallas_penalty.py (CUDA kernels for CUDA tensors, its plain
     # forward and backward for CPU tensors), "auto" "pallas" for CUDA
-    # tensors and "xla" otherwise. The names are the JAX package's.
-    corridor_backend: str = "xla"
+    # tensors and "xla" otherwise. The names are the JAX package's; its
+    # default is "xla", this one's "auto", so that CUDA tensors run the
+    # corridor kernels K2/K3 without a flag ("xla" stays the reference).
+    corridor_backend: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

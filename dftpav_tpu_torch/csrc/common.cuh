@@ -7,9 +7,11 @@
 
 #ifdef __CUDACC__
 #define DFT_HD __host__ __device__ __forceinline__
+#define DFT_UNROLL _Pragma("unroll")
 #else
 #include <cmath>
 #define DFT_HD inline
+#define DFT_UNROLL
 #endif
 
 namespace dftpav {

@@ -23,12 +23,35 @@
 // inactive) contribute exactly zero and are skipped; JAX's where-selects give
 // the same zeros.
 //
+// Mapping (lane_eval): the G members of a team (team.cuh: one warp on the
+// card, G = 32; the host harness runs the same members in turn) share one
+// lane. Every stage is a function of one member plus a combine over the
+// team:
+//   1. rhs and the jerk form: member m takes entries m, m + G, ... of the
+//      2 (N + 5) rhs values (written once per evaluation, in double, to the
+//      lane's scratch) and of Q rhs; the energy is a team sum;
+//   2. rows: member m takes sample rows m, m + G, ...: sample maps,
+//      corridor, feasibility and their gradient; the obstacle block is only
+//      a scalar gate here, which marks the (row, obstacle) pairs within
+//      reach;
+//   3. near pairs: each step's marked pairs are packed by a ballot and a
+//      prefix popcount into a ring of 2G entries; whenever G are waiting,
+//      member m runs the obstacle penalty of entry m in dual numbers (its
+//      .v is the value), so the team never idles on one member's pair;
+//   4. combine: the per-member gradient partials (2 (N + 5) rhs slots and
+//      dT) are reduce-scattered, and member m finishes the rhs slots it
+//      holds through the jerk form and _pre.
+// Every combine is an xor butterfly (team.cuh), so the result depends on
+// which member took which row, never on timing: two runs are bitwise equal.
+//
 // The same header compiles with nvcc (kernels.cu, float) and with g++ (the
-// host test harness, double), so the hand gradient is checked against
-// autograd on the CPU before it runs on the card.
+// host test harness, double and float), so the hand gradient and the team
+// mapping are checked against autograd on the CPU before they run on the
+// card.
 #pragma once
 
 #include "penalty.cuh"
+#include "team.cuh"
 
 namespace dftpav {
 
@@ -67,7 +90,8 @@ template <class T, int K>
 DFT_HD Dual<T, K> operator/(const Dual<T, K>& a, const Dual<T, K>& b) {
   Dual<T, K> r;
   r.v = a.v / b.v;
-  for (int i = 0; i < K; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  const T ib = T(1) / b.v;
+  for (int i = 0; i < K; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) * ib;
   return r;
 }
 template <class T, int K>
@@ -117,7 +141,8 @@ template <class T, int K>
 DFT_HD Dual<T, K> operator/(const Dual<T, K>& a, T b) {
   Dual<T, K> r;
   r.v = a.v / b;
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] / b;
+  const T ib = T(1) / b;
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * ib;
   return r;
 }
 template <class T, int K>
@@ -131,7 +156,8 @@ template <class T, int K>
 DFT_HD Dual<T, K> m_log(const Dual<T, K>& a) {
   Dual<T, K> r;
   r.v = m_log(a.v);
-  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] / a.v;
+  const T ia = T(1) / a.v;
+  for (int i = 0; i < K; ++i) r.d[i] = a.d[i] * ia;
   return r;
 }
 template <class T, int K>
@@ -219,63 +245,31 @@ DFT_HD S horner1(const T* c, const S& tau) {
   return h;
 }
 
-template <class S, class T, int K>
-DFT_HD S neg_lse(const S* vals, T alpha) {
-  S neg[K];
-  T m = T(0);
-  for (int i = 0; i < K; ++i) {
-    neg[i] = (-alpha) * vals[i];
-    m = i == 0 ? val(neg[0]) : m_max(m, val(neg[i]));
-  }
-  S s = m_exp(neg[0] - m);
-  for (int i = 1; i < K; ++i) s = s + m_exp(neg[i] - m);
-  return (-(m_log(s) + m)) / alpha;
-}
-template <class S, class T, int K>
-DFT_HD S pos_lse(const S* vals, T alpha) {
-  S pos[K];
-  T m = T(0);
-  for (int i = 0; i < K; ++i) {
-    pos[i] = alpha * vals[i];
-    m = i == 0 ? val(pos[0]) : m_max(m, val(pos[i]));
-  }
-  S s = m_exp(pos[0] - m);
-  for (int i = 1; i < K; ++i) s = s + m_exp(pos[i] - m);
-  return (m_log(s) + m) / alpha;
-}
+// ---------------------------------------------------------------------------
+// Dynamic obstacles (kcost.py obstacle_cost)
+// ---------------------------------------------------------------------------
 
-// One obstacle's penalty at one valid sample row (kcost.py obstacle_cost):
-// 0 when the obstacle is far, masked, or the signed distance is above d_min.
-// S is T (value) or Dual<T, 5> (value + d/d(sig_x, sig_y, u, v, dT)).
-// cx, cy: the obstacle's coefficient rows for this lane, stride B.
-template <class S, class T>
-DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
-                      const S& dT, T frac, T dt_o, T rel_t0, const T* cx,
-                      const T* cy, size_t B, int Po, const KW<T>& w) {
-  const S pt = rel_t0 + frac * dT;
-  const T total = dt_o * T(Po);
-  const bool inside = val(pt) < total;
-  const S ft = (inside ? pt : S(total)) / dt_o;
-  T idxf = m_floor(val(ft));
-  idxf = m_min(m_max(idxf, T(0)), T(Po - 1));
-  const int idx = int(idxf);
-  const S tau = ft - idxf;
+// One obstacle of one lane: the timing of its prediction and the end state
+// of its last piece, for the constant-acceleration extrapolation past it.
+// Its coefficient rows lie beside it: cx / cy[6 p + k], piece p, power k.
+template <class T>
+struct ObsLane {
+  T dt, rel_t0, total;
+  T pe_x, pe_y, ve_x, ve_y, ae_x, ae_y;
+  int active;
+};
 
-  T px[6], py[6];
-  for (int k = 0; k < 6; ++k) {
-    px[k] = cx[(size_t)(6 * idx + k) * B];
-    py[k] = cy[(size_t)(6 * idx + k) * B];
-  }
-  const S pin_x = horner0(px, tau);
-  const S pin_y = horner0(py, tau);
-
-  // end state of the last piece, constant-acceleration extrapolation
-  const T inv_dt = T(1) / dt_o;
-  T lx[6], ly[6];
-  for (int k = 0; k < 6; ++k) {
-    lx[k] = cx[(size_t)(6 * (Po - 1) + k) * B];
-    ly[k] = cy[(size_t)(6 * (Po - 1) + k) * B];
-  }
+template <class T>
+DFT_HD ObsLane<T> obs_lane(const T* cx, const T* cy, int Po, T dt, T rel_t0,
+                           bool active) {
+  ObsLane<T> ol;
+  ol.dt = dt;
+  ol.rel_t0 = rel_t0;
+  ol.total = dt * T(Po);
+  ol.active = active ? 1 : 0;
+  const T inv_dt = T(1) / dt;
+  const T* lx = cx + 6 * (Po - 1);
+  const T* ly = cy + 6 * (Po - 1);
   T pe_x = lx[0], pe_y = ly[0], ve_x = T(0), ve_y = T(0), ae_x = T(0),
     ae_y = T(0);
   for (int k = 1; k < 6; ++k) {
@@ -288,65 +282,184 @@ DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
       ae_y = k == 2 ? T(2) * ly[2] : ae_y + T(k * (k - 1)) * ly[k];
     }
   }
-  ve_x = ve_x * inv_dt;
-  ve_y = ve_y * inv_dt;
-  ae_x = ae_x * inv_dt * inv_dt;
-  ae_y = ae_y * inv_dt * inv_dt;
-  const S ex = val(pt) - total > T(0) ? pt - total : S(T(0));
-  const S half_ex2 = (T(0.5) * ex) * ex;
-  const S p_x = inside ? pin_x : (pe_x + ex * ve_x) + half_ex2 * ae_x;
-  const S p_y = inside ? pin_y : (pe_y + ex * ve_y) + half_ex2 * ae_y;
+  ol.pe_x = pe_x;
+  ol.pe_y = pe_y;
+  ol.ve_x = ve_x * inv_dt;
+  ol.ve_y = ve_y * inv_dt;
+  ol.ae_x = ae_x * inv_dt * inv_dt;
+  ol.ae_y = ae_y * inv_dt * inv_dt;
+  return ol;
+}
 
-  // heading frame: derivative of the selected (or extrapolated last) piece
-  const S tau_r = inside ? tau : T(1) + ex / dt_o;
-  const int pr = inside ? idx : Po - 1;
-  for (int k = 0; k < 6; ++k) {
-    px[k] = cx[(size_t)(6 * pr + k) * B];
-    py[k] = cy[(size_t)(6 * pr + k) * B];
-  }
-  const S vr_x = horner1(px, tau_r);
-  const S vr_y = horner1(py, tau_r);
+// The obstacle at a sample's time rel_t0 + frac * dT: its position, and the
+// piece and local time whose derivative gives its heading.
+template <class S>
+struct ObsAt {
+  S p_x, p_y, tau_r;
+  int pr;
+};
+
+template <class S, class T>
+DFT_HD ObsAt<S> obstacle_at(const S& dT, T frac, const ObsLane<T>& ol,
+                            const T* cx, const T* cy, int Po) {
+  const S pt = ol.rel_t0 + frac * dT;
+  const bool inside = val(pt) < ol.total;
+  const S ft = (inside ? pt : S(ol.total)) / ol.dt;
+  T idxf = m_floor(val(ft));
+  idxf = m_min(m_max(idxf, T(0)), T(Po - 1));
+  const int idx = int(idxf);
+  const S tau = ft - idxf;
+  const S pin_x = horner0(cx + 6 * idx, tau);
+  const S pin_y = horner0(cy + 6 * idx, tau);
+  const S ex = val(pt) - ol.total > T(0) ? pt - ol.total : S(T(0));
+  const S half_ex2 = (T(0.5) * ex) * ex;
+  ObsAt<S> a;
+  a.p_x = inside ? pin_x : (ol.pe_x + ex * ol.ve_x) + half_ex2 * ol.ae_x;
+  a.p_y = inside ? pin_y : (ol.pe_y + ex * ol.ve_y) + half_ex2 * ol.ae_y;
+  a.tau_r = inside ? tau : T(1) + ex / ol.dt;
+  a.pr = inside ? idx : Po - 1;
+  return a;
+}
+
+// The obstacle's heading frame (its unit velocity) at the sample's time.
+template <class S, class T>
+DFT_HD void obstacle_heading(const ObsAt<S>& a, const T* cx, const T* cy,
+                             S& uo, S& vo) {
+  const S vr_x = horner1(cx + 6 * a.pr, a.tau_r);
+  const S vr_y = horner1(cy + 6 * a.pr, a.tau_r);
   const S vrn2 = vr_x * vr_x + vr_y * vr_y;
   const S inv_vrn = m_rsqrt(val(vrn2) > T(1e-24) ? vrn2 : S(T(1e-24)));
-  const S uo = vr_x * inv_vrn;
-  const S vo = vr_y * inv_vrn;
+  uo = vr_x * inv_vrn;
+  vo = vr_y * inv_vrn;
+}
 
-  const S rel_x = p_x - sx;
-  const S rel_y = p_y - sy;
+// Hull edge i of the pair (i < 4: an ego edge against the obstacle's
+// vertices; i >= 4: an obstacle edge against the ego's): its normal h and
+// offset term d_tilde; its 4 cross terms are h . (the other hull's vertex
+// f), and its signed distance is their soft minimum plus the offset. The
+// rotated vertices are recomputed where they are used rather than held,
+// which keeps a dual-number evaluation's live state small.
+template <class S>
+struct Edge {
+  S hx, hy, d_tilde;
+};
+
+template <class S, class T>
+DFT_HD Edge<S> edge_of(int i, const S& u, const S& v, const S& uo,
+                       const S& vo, const S& rel_x, const S& rel_y,
+                       const KW<T>& w) {
+  const bool ego = i < 4;
+  const int e = ego ? i : i - 4;
+  const S& a_u = ego ? u : uo;   // the edge's frame
+  const S& a_v = ego ? v : vo;
+  const T ehx = w.eh[e][0], ehy = w.eh[e][1];
+  const T lex = w.le[e][0], ley = w.le[e][1];
+  Edge<S> g;
+  g.hx = (-a_v) * ehx - a_u * ehy;
+  g.hy = a_u * ehx - a_v * ehy;
+  const S rl_x = a_u * lex - a_v * ley;
+  const S rl_y = a_v * lex + a_u * ley;
+  g.d_tilde = ego ? g.hx * (rel_x - rl_x) + g.hy * (rel_y - rl_y)
+                  : g.hx * ((-rel_x) - rl_x) + g.hy * ((-rel_y) - rl_y);
+  return g;
+}
+
+// Cross term f of edge i: h . (the other hull's vertex f, rotated).
+template <class S, class T>
+DFT_HD S edge_cross(int i, int f, const Edge<S>& g, const S& u, const S& v,
+                    const S& uo, const S& vo, const KW<T>& w) {
+  const bool ego = i < 4;
+  const S& b_u = ego ? uo : u;   // the other hull's frame
+  const S& b_v = ego ? vo : v;
+  const T lfx = w.le[f][0], lfy = w.le[f][1];
+  return g.hx * (b_u * lfx - b_v * lfy) + g.hy * (b_v * lfx + b_u * lfy);
+}
+
+// Running log-sum-exp: after add(0, x_0) .. add(k, x_k), lse() is
+// log sum_j exp x_j. m, a plain number (no derivative), is the running
+// maximum that keeps the exponentials in range; s is rescaled when it
+// moves (by exp(0) = 1 exactly when it does not).
+template <class S, class T>
+struct RunLse {
+  S s;
+  T m;
+  DFT_HD void add(int j, const S& x) {
+    if (j == 0) {
+      m = val(x);
+      s = m_exp(x - m);
+    } else {
+      const T nm = m_max(m, val(x));
+      s = s * m_exp(m - nm) + m_exp(x - nm);
+      m = nm;
+    }
+  }
+  DFT_HD S lse() const { return m_log(s) + m; }
+};
+
+// The scalar gate: whether the pair can have a penalty. First the reach
+// |p_obs - sig|^2 <= near_r2 (beyond it the penalty is 0 by definition);
+// then a lower bound of the smooth distance D = (1/alpha) log sum_i
+// exp(alpha d_i): D >= max_i d_i, and each edge's soft minimum is at least
+// its smallest cross term less log(4)/alpha (the separating-axis bound).
+// When the bound clears d_min by 1e-3 m (far above float rounding of D),
+// d_min - D < 0 and the penalty is exactly 0, so only pairs that fail it
+// go on to the dual-number pass.
+template <class T>
+DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T dT, T frac,
+                          const ObsLane<T>& ol, const T* cx, const T* cy,
+                          int Po, const KW<T>& w) {
+  const ObsAt<T> a = obstacle_at<T, T>(dT, frac, ol, cx, cy, Po);
+  const T rel_x = a.p_x - sx;
+  const T rel_y = a.p_y - sy;
+  if (!(rel_x * rel_x + rel_y * rel_y <= w.near_r2)) return false;
+  T uo, vo;
+  obstacle_heading(a, cx, cy, uo, vo);
+  T bound = T(0);
+  for (int i = 0; i < 8; ++i) {
+    const Edge<T> g = edge_of<T, T>(i, u, v, uo, vo, rel_x, rel_y, w);
+    T lo = T(0);
+    for (int f = 0; f < 4; ++f) {
+      const T c = edge_cross<T, T>(i, f, g, u, v, uo, vo, w);
+      lo = f == 0 ? c : m_min(lo, c);
+    }
+    bound = i == 0 ? lo + g.d_tilde : m_max(bound, lo + g.d_tilde);
+  }
+  bound = bound - m_log(T(4)) / w.alpha;
+  return !(bound >= w.d_min + T(1e-3));
+}
+
+// One obstacle's penalty at one valid sample row: 0 when the obstacle is
+// beyond the gate or the smooth signed distance is above d_min. S is T
+// (value) or Dual<T, 5> (value + d/d(sig_x, sig_y, u, v, dT)). Both
+// log-sum-exps (over an edge's 4 cross terms, and over the 8 edges) run
+// online, so no array of dual numbers is held.
+template <class S, class T>
+DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
+                      const S& dT, T frac, const ObsLane<T>& ol, const T* cx,
+                      const T* cy, int Po, const KW<T>& w) {
+  const ObsAt<S> a = obstacle_at<S, T>(dT, frac, ol, cx, cy, Po);
+  S uo, vo;
+  obstacle_heading(a, cx, cy, uo, vo);
+  const S rel_x = a.p_x - sx;
+  const S rel_y = a.p_y - sy;
   if (!(val(rel_x * rel_x + rel_y * rel_y) <= w.near_r2)) return S(T(0));
 
-  S He[4][2], Ho[4][2], Rle[4][2], Rlo[4][2];
-  for (int e = 0; e < 4; ++e) {
-    const T ehx = w.eh[e][0], ehy = w.eh[e][1];
-    const T lex = w.le[e][0], ley = w.le[e][1];
-    He[e][0] = (-v) * ehx - u * ehy;
-    He[e][1] = u * ehx - v * ehy;
-    Ho[e][0] = (-vo) * ehx - uo * ehy;
-    Ho[e][1] = uo * ehx - vo * ehy;
-    Rle[e][0] = u * lex - v * ley;
-    Rle[e][1] = v * lex + u * ley;
-    Rlo[e][0] = uo * lex - vo * ley;
-    Rlo[e][1] = vo * lex + uo * ley;
+  RunLse<S, T> outer;
+  for (int i = 0; i < 8; ++i) {
+    const Edge<S> g = edge_of<S, T>(i, u, v, uo, vo, rel_x, rel_y, w);
+    RunLse<S, T> inner;                  // soft minimum of the cross terms
+    for (int f = 0; f < 4; ++f)
+      inner.add(f, (-w.alpha) * edge_cross<S, T>(i, f, g, u, v, uo, vo, w));
+    outer.add(i, w.alpha * ((-inner.lse()) / w.alpha + g.d_tilde));
   }
-  S d_all[8];
-  S cross[4];
-  for (int e = 0; e < 4; ++e) {
-    const S hx = He[e][0], hy = He[e][1];
-    const S d_tilde = hx * (rel_x - Rle[e][0]) + hy * (rel_y - Rle[e][1]);
-    for (int f = 0; f < 4; ++f) cross[f] = hx * Rlo[f][0] + hy * Rlo[f][1];
-    d_all[e] = neg_lse<S, T, 4>(cross, w.alpha) + d_tilde;
-  }
-  for (int f = 0; f < 4; ++f) {
-    const S hx = Ho[f][0], hy = Ho[f][1];
-    const S d_tilde =
-        hx * ((-rel_x) - Rlo[f][0]) + hy * ((-rel_y) - Rlo[f][1]);
-    for (int e = 0; e < 4; ++e) cross[e] = hx * Rle[e][0] + hy * Rle[e][1];
-    d_all[4 + f] = neg_lse<S, T, 4>(cross, w.alpha) + d_tilde;
-  }
-  const S d_val = w.d_min - pos_lse<S, T, 8>(d_all, w.alpha);
+  const S d_val = w.d_min - outer.lse() / w.alpha;
   if (!(val(d_val) > T(0))) return S(T(0));
   return sl1(d_val);
 }
+
+// ---------------------------------------------------------------------------
+// One lane's evaluation, split over the members of a team
+// ---------------------------------------------------------------------------
 
 template <int N>
 struct KDims {
@@ -356,237 +469,441 @@ struct KDims {
   static constexpr int DP = ((DIM + 7) / 8) * 8 > 16 ? ((DIM + 7) / 8) * 8 : 16;
 };
 
-// The threads that work on one lane. Solo is one thread (the host harness);
-// the kernels use a group of G threads of one warp (kernels.cu WarpGroup):
-// each takes every G-th sample row, sum() all-reduces a per-lane partial so
-// that every member holds the identical total and takes the identical solver
-// decisions, and bcast(v, j) hands every member member j's v.
-struct Solo {
-  static constexpr int size = 1;
-  DFT_HD int rank() const { return 0; }
-  template <class V> DFT_HD V sum(V v) const { return v; }
-  template <class V> DFT_HD V bcast(V v, int) const { return v; }
+// Slots of a member's gradient partials: the 2 (N + 5) rhs entries, then
+// d/d dT; a multiple of every team size.
+constexpr int kAcc = 32;
+
+// A member's gradient partials in the team's scratch: slot i of member m
+// at p[i * G] (p = base + m), so that the members of a warp touch
+// consecutive words. Keeping them out of the registers leaves those to the
+// dual-number pass.
+template <class T>
+struct Acc {
+  T* p;
+  int stride;
+  DFT_HD T& operator[](int i) const { return p[i * stride]; }
 };
 
-// f (scaled by cost_scale) and, if g != nullptr, its gradient g[DP] at the
-// decision vector x[DP] of lane `lane`. P [3][R][C], Q [C][C], gridc [2][R].
-template <class T, int N, class Grp = Solo>
-DFT_HD T lane_fg(const T* x, T* g, const Slabs<T>& sl, int lane, const T* P,
-                 const T* Q, const T* gridc, const KW<T>& w,
-                 const Grp& grp = Grp()) {
-  constexpr int C = KDims<N>::C;
-  constexpr int NIN = KDims<N>::NIN;
-  constexpr int DP = KDims<N>::DP;
+// A (row, obstacle) pair within reach, waiting for its dual-number pass:
+// the row's sample as the scalar pass computed it.
+template <class T>
+struct NearPair {
+  T sx, sy, dsx, dsy, inv_vn;
+  int r, o;
+};
+
+// What one lane's evaluation reads and writes. The class constants are
+// shared by every lane; the lane's rows are its own; the rest is the team's
+// scratch (shared memory on the card).
+template <class T>
+struct LaneData {
+  const double* Pd;      // [3][R][C] sample maps, in double
+  const T* P;            // the same in T
+  const T* Q;            // [C][C] jerk form
+  const T* gridc;        // [2][R] quadrature weight (0: skipped), time frac
+  int R, H, O, Po;
+  T sgl;                 // gear sign
+  Planes<T> planes;      // half-planes of row 0; row r at + r * plane_row
+  size_t plane_row;
+  const T* bnd;          // [12] head p, v, a; tail p, v, a (x, y each)
+  const T* obs;          // [O][2][6 Po] obstacle coefficients
+  const ObsLane<T>* ol;  // [O]
+  T* x;                  // [DP] the point to evaluate
+  T* g;                  // [DP] its gradient
+  double* rhs;           // [2][C]
+  T* qr;                 // [2][C] Q rhs
+  NearPair<T>* ring;     // [2 G]
+  T* acc;                // [kAcc][G] the members' gradient partials
+};
+
+// Copies lane `lane`'s boundary rows and obstacle coefficients from the
+// slabs into the team's scratch (bnd_s [12], obs_s [O][2][6 Po]) and sets
+// up its obstacles (ol_s [O]).
+template <class T, class Team>
+DFT_HD void stage_lane(const Team& tm, const Slabs<T>& sl, int lane, T* bnd_s,
+                       T* obs_s, ObsLane<T>* ol_s) {
   const size_t B = (size_t)sl.B;
-  const int R = sl.R, H = sl.H, O = sl.O, Po = sl.Po;
-  const T* bnd = sl.bnd + lane;
-
-  // ---- _pre ----
-  const T vt = x[NIN] * w.sigma;
-  const T Tpos = (T(0.5) * vt + T(1)) * vt + T(1);
-  const T qneg = (T(0.5) * vt - T(1)) * vt + T(1);
-  const T Ttot = (vt > T(0) ? Tpos : T(1) / qneg) + w.mini_t;
-  const T dT = Ttot / T(N);
-  const T dT2 = dT * dT;
-  T rhs[2][C];
-  for (int d = 0; d < 2; ++d) {
-    rhs[d][0] = bnd[(size_t)d * B];
-    rhs[d][1] = bnd[(size_t)(2 + d) * B] * dT;
-    rhs[d][2] = bnd[(size_t)(4 + d) * B] * dT2;
-    for (int j = 0; j < N - 1; ++j) rhs[d][3 + j] = x[2 * j + d];
-    rhs[d][N + 2] = bnd[(size_t)(6 + d) * B];
-    rhs[d][N + 3] = bnd[(size_t)(8 + d) * B] * dT;
-    rhs[d][N + 4] = bnd[(size_t)(10 + d) * B] * dT2;
+  const int O = sl.O, Po = sl.Po, n_obs = 12 * O * Po;
+  for (int k = 0; k < Team::kRun; ++k) {
+    const int m = tm.member(k);
+    for (int i = m; i < 12; i += Team::G) bnd_s[i] = sl.bnd[i * B + lane];
+    for (int i = m; i < n_obs; i += Team::G) obs_s[i] = sl.obs[i * B + lane];
   }
+  tm.sync();
+  for (int k = 0; k < Team::kRun; ++k)
+    for (int o = tm.member(k); o < O; o += Team::G)
+      ol_s[o] = obs_lane(obs_s + 12 * Po * o, obs_s + 12 * Po * o + 6 * Po,
+                         Po, sl.misc[(size_t)(2 + o) * B + lane],
+                         sl.misc[(size_t)(2 + O + o) * B + lane],
+                         sl.misc[(size_t)(2 + 2 * O + o) * B + lane] > T(0.5));
+  tm.sync();
+}
 
-  // ---- jerk energy + time ----
-  // The quadratic form cancels heavily (Q's entries are large next to the
-  // energy), so it is summed in double, like the per-row cost sums below:
-  // float sums over ~170 terms otherwise cost ~3e-5 relative in f.
-  const T invdT = T(1) / dT;
-  const T invdT2 = invdT * invdT;
-  const T i5 = invdT2 * invdT2 * invdT;
-  T qr[2][C];
-  double energy = 0.0;
-  for (int d = 0; d < 2; ++d) {
-    for (int i = 0; i < C; ++i) {
-      double s = 0.0;
-      for (int k = 0; k < C; ++k) s += double(Q[i * C + k]) * rhs[d][k];
-      qr[d][i] = T(s);
-      energy += double(rhs[d][i]) * s;
-    }
-  }
-  const T jerk = T(energy * double(i5));
+// The half-planes of lane `lane` in the slabs (kernel A reads them there).
+template <class T>
+DFT_HD Planes<T> planes_slab(const Slabs<T>& sl, int lane) {
+  Planes<T> pl;
+  pl.n = sl.cn + lane;
+  pl.p = sl.cp + lane;
+  pl.m = sl.cm + lane;
+  pl.stride = (size_t)sl.R * sl.B;
+  return pl;
+}
 
-  // ---- per-lane constants ----
-  const T sgl = sl.misc[lane];
+// Kernel B reads them lane-major, from a copy [B][5 H][R] made once per
+// launch: plane q of lane b at (b * 5 H + q) * R, planes cn (2 H), cp (2 H),
+// cm (H) in that order. A lane's rows are then contiguous, so a warp that
+// works on one lane reads each plane in whole lines.
+template <class T>
+DFT_HD const T* lane_major_src(const Slabs<T>& sl, int q) {
+  const size_t RB = (size_t)sl.R * sl.B;
+  const int H = sl.H;
+  if (q < 2 * H) return sl.cn + q * RB;
+  if (q < 4 * H) return sl.cp + (q - 2 * H) * RB;
+  return sl.cm + (q - 4 * H) * RB;
+}
+template <class T>
+DFT_HD Planes<T> planes_lane_major(const T* copy, int lane, int H, int R) {
+  const T* base = copy + (size_t)lane * 5 * H * R;
+  Planes<T> pl;
+  pl.n = base;
+  pl.p = base + (size_t)2 * H * R;
+  pl.m = base + (size_t)4 * H * R;
+  pl.stride = (size_t)R;
+  return pl;
+}
+
+// Lane-level values of one evaluation, the same on every member.
+template <class T>
+struct EvPre {
+  T vt, Ttot, qneg, dT, dT2, invdT, invdT2, i5;
+  T max_vel, max_acc, max_cur;
+};
+
+template <class T, int N>
+DFT_HD EvPre<T> ev_pre(T x_nin, T sgl, const KW<T>& w) {
+  EvPre<T> e;
+  e.vt = x_nin * w.sigma;
+  const T Tpos = (T(0.5) * e.vt + T(1)) * e.vt + T(1);
+  e.qneg = (T(0.5) * e.vt - T(1)) * e.vt + T(1);
+  e.Ttot = (e.vt > T(0) ? Tpos : T(1) / e.qneg) + w.mini_t;
+  e.dT = e.Ttot / T(N);
+  e.dT2 = e.dT * e.dT;
+  e.invdT = T(1) / e.dT;
+  e.invdT2 = e.invdT * e.invdT;
+  e.i5 = e.invdT2 * e.invdT2 * e.invdT;
   const bool fwd = sgl > T(0);
-  const T max_vel = fwd ? w.mfv : w.mbv;
-  const T max_acc = fwd ? w.mfa : w.mba;
-  const T max_cur = fwd ? w.mfc : w.mbc;
-  const T* cn = sl.cn + lane;
-  const T* cp = sl.cp + lane;
-  const T* cm = sl.cm + lane;
+  e.max_vel = fwd ? w.mfv : w.mbv;
+  e.max_acc = fwd ? w.mfa : w.mba;
+  e.max_cur = fwd ? w.mfc : w.mbc;
+  return e;
+}
 
-  const bool want_g = g != nullptr;
-  T G[2][C];              // d f / d rhs_d through the sample maps P_o
-  if (want_g)
-    for (int d = 0; d < 2; ++d)
-      for (int c = 0; c < C; ++c) G[d][c] = T(0);
-  T g_dT = T(0);
-  double f_corr = 0.0, f_feas = 0.0, f_dyn = 0.0;
+// rhs entry i = d (N + 5) + c (_pre).
+template <class T, int N>
+DFT_HD T rhs_entry(int i, const LaneData<T>& L, const EvPre<T>& e) {
+  constexpr int C = N + 5;
+  const int d = i / C, c = i - d * C;
+  if (c == 0) return L.bnd[d];
+  if (c == 1) return L.bnd[2 + d] * e.dT;
+  if (c == 2) return L.bnd[4 + d] * e.dT2;
+  if (c < N + 2) return L.x[2 * (c - 3) + d];
+  if (c == N + 2) return L.bnd[6 + d];
+  if (c == N + 3) return L.bnd[8 + d] * e.dT;
+  return L.bnd[10 + d] * e.dT2;
+}
 
-  for (int r = grp.rank(); r < R; r += Grp::size) {
-    const T omg = gridc[r];
-    if (!(omg > T(0))) continue;
-    const T* P0 = P + (size_t)r * C;
-    const T* P1 = P + (size_t)(R + r) * C;
-    const T* P2 = P + (size_t)(2 * R + r) * C;
-    // sample maps in double: the derivative rows cancel large terms of
-    // opposite sign, and float sums there cost ~3e-5 relative in f
-    double s0[2] = {0.0, 0.0}, s1[2] = {0.0, 0.0}, s2[2] = {0.0, 0.0};
-    for (int c = 0; c < C; ++c) {
-      for (int d = 0; d < 2; ++d) {
-        s0[d] += double(P0[c]) * double(rhs[d][c]);
-        s1[d] += double(P1[c]) * double(rhs[d][c]);
-        s2[d] += double(P2[c]) * double(rhs[d][c]);
-      }
+// (Q rhs_d)_c for entry i = d (N + 5) + c, stored to qr; returns entry i's
+// share of the jerk energy rhs^T Q rhs. In double: the quadratic form
+// cancels heavily (Q's entries are large next to the energy).
+template <class T, int N>
+DFT_HD double jerk_entry(int i, const LaneData<T>& L) {
+  constexpr int C = N + 5;
+  const int d = i / C, c = i - d * C;
+  double s = 0.0;
+  for (int k = 0; k < C; ++k) s += double(L.Q[c * C + k]) * L.rhs[d * C + k];
+  L.qr[i] = T(s);
+  return L.rhs[i] * s;
+}
+
+// The scalar pass over sample row r: its corridor and feasibility terms
+// and their gradient, added to the member's partials (acc, f), and which
+// obstacles are within reach of it (bit o of .near). .p.r < 0: no row.
+template <class T>
+struct RowOut {
+  NearPair<T> p;
+  unsigned near;
+};
+
+template <class T, int N>
+DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
+                          const KW<T>& w, const Acc<T>& acc, double& f) {
+  constexpr int C = N + 5;
+  RowOut<T> out;
+  out.near = 0u;
+  out.p.r = -1;
+  if (r >= L.R) return out;
+  const T omg = L.gridc[r];
+  if (!(omg > T(0))) return out;
+  const int R = L.R;
+  // sample maps in double: the derivative rows cancel large terms of
+  // opposite sign, and float sums there cost ~3e-5 relative in f
+  const double* P0 = L.Pd + (size_t)r * C;
+  const double* P1 = L.Pd + (size_t)(R + r) * C;
+  const double* P2 = L.Pd + (size_t)(2 * R + r) * C;
+  double s0[2] = {0.0, 0.0}, s1[2] = {0.0, 0.0}, s2[2] = {0.0, 0.0};
+  for (int c = 0; c < C; ++c) {
+    for (int d = 0; d < 2; ++d) {
+      const double rd = L.rhs[d * C + c];
+      s0[d] += P0[c] * rd;
+      s1[d] += P1[c] * rd;
+      s2[d] += P2[c] * rd;
     }
-    const T sx = T(s0[0]), sy = T(s0[1]);
-    const T dsx = T(s1[0]) * invdT, dsy = T(s1[1]) * invdT;
-    const T ddx = T(s2[0]) * invdT2, ddy = T(s2[1]) * invdT2;
-    const T vn2 = dsx * dsx + dsy * dsy;
-    if (!(vn2 >= T(1e-8))) continue;             // invalid row: weight 0
-    const T inv_vn = m_rsqrt(vn2);
-    const T vel2_reci = T(1) / vn2;
-    const T vel2_reci_e = T(1) / (vn2 + w.epis);
-    const T vel32 = vel2_reci_e * m_sqrt(vel2_reci_e);
-    const T wq = omg * dT;
-    const T u = dsx * inv_vn * sgl;
-    const T v = dsy * inv_vn * sgl;
-
-    // corridor: A = sum_eh sl1(viol_eh) * mask_h
-    T cnx[kMaxH], cny[kMaxH], cpx[kMaxH], cpy[kMaxH], cmh[kMaxH];
-    for (int h = 0; h < H; ++h) {
-      cnx[h] = cn[((size_t)(2 * h) * R + r) * B];
-      cny[h] = cn[((size_t)(2 * h + 1) * R + r) * B];
-      cpx[h] = cp[((size_t)(2 * h) * R + r) * B];
-      cpy[h] = cp[((size_t)(2 * h + 1) * R + r) * B];
-      cmh[h] = cm[((size_t)h * R + r) * B];
-    }
-    const CorridorRow<T> cr = corridor_row(sx, sy, u, v, cnx, cny, cpx, cpy,
-                                           cmh, H, w.le, want_g);
-    const T A = cr.A, gA_sx = cr.gx, gA_sy = cr.gy, gA_u = cr.gu,
-            gA_v = cr.gv;
-
-    // feasibility
-    const T z1 = ddx * dsx + ddy * dsy;
-    const T z3 = ddy * dsx - ddx * dsy;
-    const T vv = vn2 - max_vel * max_vel;
-    const T va = z1 * z1 * vel2_reci - max_acc * max_acc;
-    const T cur = z3 * vel32;
-    const T F = sl1(vv) + sl1(va) +
-                T(10) * (sl1(cur - max_cur) + sl1(-cur - max_cur));
-
-    // dynamic obstacles
-    T D = T(0);
-    T gD[5] = {T(0), T(0), T(0), T(0), T(0)};
-    const T frac = gridc[R + r];
-    for (int o = 0; o < O; ++o) {
-      if (!(sl.misc[(size_t)(2 + 2 * O + o) * B + lane] > T(0.5))) continue;
-      const T dt_o = sl.misc[(size_t)(2 + o) * B + lane];
-      const T rel_t0 = sl.misc[(size_t)(2 + O + o) * B + lane];
-      const T* cx = sl.obs + (size_t)(2 * o) * 6 * Po * B + lane;
-      const T* cy = sl.obs + (size_t)(2 * o + 1) * 6 * Po * B + lane;
-      const T pen = obstacle_pen<T, T>(sx, sy, u, v, dT, frac, dt_o, rel_t0,
-                                       cx, cy, B, Po, w);
-      if (!(pen > T(0))) continue;
-      D += pen;
-      if (want_g) {
-        typedef Dual<T, 5> D5;
-        D5 a[5];
-        const T in[5] = {sx, sy, u, v, dT};
-        for (int i = 0; i < 5; ++i) {
-          a[i] = D5(in[i]);
-          a[i].d[i] = T(1);
-        }
-        const D5 pd = obstacle_pen<D5, T>(a[0], a[1], a[2], a[3], a[4], frac,
-                                          dt_o, rel_t0, cx, cy, B, Po, w);
-        for (int i = 0; i < 5; ++i) gD[i] += pd.d[i];
-      }
-    }
-
-    f_corr += double(wq * A);
-    f_feas += double(wq * F);
-    f_dyn += double(wq * D);
-    if (!want_g) continue;
-
-    // ---- row-local gradient ----
-    g_dT += omg * (w.wei_obs * A + w.wei_feas * F + w.wei_sur * D);
-    const T g_sx = wq * (w.wei_obs * gA_sx + w.wei_sur * gD[0]);
-    const T g_sy = wq * (w.wei_obs * gA_sy + w.wei_sur * gD[1]);
-    const T g_u = wq * (w.wei_obs * gA_u + w.wei_sur * gD[2]);
-    const T g_v = wq * (w.wei_obs * gA_v + w.wei_sur * gD[3]);
-    g_dT += wq * w.wei_sur * gD[4];
-    // (u, v) = sgl * dsig / |dsig|: project out the radial component
-    const T nx = dsx * inv_vn, ny = dsy * inv_vn;
-    const T proj = g_u * nx + g_v * ny;
-    T g_dsx = sgl * inv_vn * (g_u - nx * proj);
-    T g_dsy = sgl * inv_vn * (g_v - ny * proj);
-    // feasibility in closed form
-    const T wqf = wq * w.wei_feas;
-    const T dF_vv = sl1_grad(vv);
-    const T dF_va = sl1_grad(va);
-    const T dF_cur = T(10) * (sl1_grad(cur - max_cur) - sl1_grad(-cur - max_cur));
-    const T g_vn2 = dF_vv - dF_va * z1 * z1 * vel2_reci * vel2_reci -
-                    dF_cur * T(1.5) * cur * vel2_reci_e;
-    const T g_z1 = dF_va * T(2) * z1 * vel2_reci;
-    const T g_z3 = dF_cur * vel32;
-    g_dsx += wqf * (g_vn2 * T(2) * dsx + g_z1 * ddx + g_z3 * ddy);
-    g_dsy += wqf * (g_vn2 * T(2) * dsy + g_z1 * ddy - g_z3 * ddx);
-    const T g_ddx = wqf * (g_z1 * dsx - g_z3 * dsy);
-    const T g_ddy = wqf * (g_z1 * dsy + g_z3 * dsx);
-    // dsig = P1 rhs / dT, ddsig = P2 rhs / dT^2
-    g_dT -= (g_dsx * dsx + g_dsy * dsy) * invdT +
-            T(2) * (g_ddx * ddx + g_ddy * ddy) * invdT;
-    const T c0[2] = {g_sx, g_sy};
-    const T c1[2] = {g_dsx * invdT, g_dsy * invdT};
-    const T c2[2] = {g_ddx * invdT2, g_ddy * invdT2};
-    for (int d = 0; d < 2; ++d)
-      for (int c = 0; c < C; ++c)
-        G[d][c] += c0[d] * P0[c] + c1[d] * P1[c] + c2[d] * P2[c];
   }
+  const T sx = T(s0[0]), sy = T(s0[1]);
+  const T dsx = T(s1[0]) * e.invdT, dsy = T(s1[1]) * e.invdT;
+  const T ddx = T(s2[0]) * e.invdT2, ddy = T(s2[1]) * e.invdT2;
+  const T vn2 = dsx * dsx + dsy * dsy;
+  if (!(vn2 >= T(1e-8))) return out;             // invalid row: weight 0
+  const T sgl = L.sgl;
+  const T inv_vn = m_rsqrt(vn2);
+  const T vel2_reci = T(1) / vn2;
+  const T vel2_reci_e = T(1) / (vn2 + w.epis);
+  const T vel32 = vel2_reci_e * m_sqrt(vel2_reci_e);
+  const T wq = omg * e.dT;
+  const T nx = dsx * inv_vn, ny = dsy * inv_vn;
+  const T u = nx * sgl;
+  const T v = ny * sgl;
 
-  f_corr = grp.sum(f_corr);
-  f_feas = grp.sum(f_feas);
-  f_dyn = grp.sum(f_dyn);
-  const T f = T((double(jerk) + double(w.wei_time * Ttot)) +
-                (double(w.wei_obs) * f_corr + double(w.wei_feas) * f_feas +
-                 double(w.wei_sur) * f_dyn));
-  if (!want_g) return w.cost_scale * f;
+  // corridor: A = sum_eh sl1(viol_eh) * mask_h
+  Planes<T> pl = L.planes;
+  pl.n += (size_t)r * L.plane_row;
+  pl.p += (size_t)r * L.plane_row;
+  pl.m += (size_t)r * L.plane_row;
+  const CorridorRow<T> cr = corridor_row(sx, sy, u, v, pl, L.H, w.le, true);
 
-  // ---- back through the jerk form and _pre ----
-  g_dT = grp.sum(g_dT);
-  T g_rhs[2][C];
+  // feasibility
+  const T z1 = ddx * dsx + ddy * dsy;
+  const T z3 = ddy * dsx - ddx * dsy;
+  const T vv = vn2 - e.max_vel * e.max_vel;
+  const T va = z1 * z1 * vel2_reci - e.max_acc * e.max_acc;
+  const T cur = z3 * vel32;
+  const T F = sl1(vv) + sl1(va) +
+              T(10) * (sl1(cur - e.max_cur) + sl1(-cur - e.max_cur));
+  f += double(w.wei_obs) * double(wq * cr.A) +
+       double(w.wei_feas) * double(wq * F);
+
+  // ---- row-local gradient ----
+  acc[2 * C] += omg * (w.wei_obs * cr.A + w.wei_feas * F);
+  const T g_sx = wq * (w.wei_obs * cr.gx);
+  const T g_sy = wq * (w.wei_obs * cr.gy);
+  const T g_u = wq * (w.wei_obs * cr.gu);
+  const T g_v = wq * (w.wei_obs * cr.gv);
+  // (u, v) = sgl * dsig / |dsig|: project out the radial component
+  const T proj = g_u * nx + g_v * ny;
+  T g_dsx = sgl * inv_vn * (g_u - nx * proj);
+  T g_dsy = sgl * inv_vn * (g_v - ny * proj);
+  // feasibility in closed form
+  const T wqf = wq * w.wei_feas;
+  const T dF_vv = sl1_grad(vv);
+  const T dF_va = sl1_grad(va);
+  const T dF_cur =
+      T(10) * (sl1_grad(cur - e.max_cur) - sl1_grad(-cur - e.max_cur));
+  const T g_vn2 = dF_vv - dF_va * z1 * z1 * vel2_reci * vel2_reci -
+                  dF_cur * T(1.5) * cur * vel2_reci_e;
+  const T g_z1 = dF_va * T(2) * z1 * vel2_reci;
+  const T g_z3 = dF_cur * vel32;
+  g_dsx += wqf * (g_vn2 * T(2) * dsx + g_z1 * ddx + g_z3 * ddy);
+  g_dsy += wqf * (g_vn2 * T(2) * dsy + g_z1 * ddy - g_z3 * ddx);
+  const T g_ddx = wqf * (g_z1 * dsx - g_z3 * dsy);
+  const T g_ddy = wqf * (g_z1 * dsy + g_z3 * dsx);
+  // dsig = P1 rhs / dT, ddsig = P2 rhs / dT^2
+  acc[2 * C] -= (g_dsx * dsx + g_dsy * dsy) * e.invdT +
+                T(2) * (g_ddx * ddx + g_ddy * ddy) * e.invdT;
+  const T c0[2] = {g_sx, g_sy};
+  const T c1[2] = {g_dsx * e.invdT, g_dsy * e.invdT};
+  const T c2[2] = {g_ddx * e.invdT2, g_ddy * e.invdT2};
+  const T* Pf0 = L.P + (size_t)r * C;
+  const T* Pf1 = L.P + (size_t)(R + r) * C;
+  const T* Pf2 = L.P + (size_t)(2 * R + r) * C;
   for (int d = 0; d < 2; ++d)
-    for (int c = 0; c < C; ++c) {
-      T qt = T(0);                                 // (Q^T rhs)_c
-      for (int k = 0; k < C; ++k) qt += Q[k * C + c] * rhs[d][k];
-      g_rhs[d][c] = grp.sum(G[d][c]) + i5 * (qr[d][c] + qt);
-    }
-  g_dT -= T(5) * jerk * invdT;
-  for (int d = 0; d < 2; ++d) {
-    g_dT += g_rhs[d][1] * bnd[(size_t)(2 + d) * B] +
-            g_rhs[d][2] * bnd[(size_t)(4 + d) * B] * T(2) * dT +
-            g_rhs[d][N + 3] * bnd[(size_t)(8 + d) * B] +
-            g_rhs[d][N + 4] * bnd[(size_t)(10 + d) * B] * T(2) * dT;
+    for (int c = 0; c < C; ++c)
+      acc[d * C + c] += c0[d] * Pf0[c] + c1[d] * Pf1[c] + c2[d] * Pf2[c];
+
+  // obstacles: only the gate here (obstacle_near)
+  const T frac = L.gridc[R + r];
+  const int Po = L.Po;
+  for (int o = 0; o < L.O; ++o)
+    if (L.ol[o].active &&
+        obstacle_near(sx, sy, u, v, e.dT, frac, L.ol[o],
+                      L.obs + 12 * Po * o, L.obs + 12 * Po * o + 6 * Po,
+                      Po, w))
+      out.near |= 1u << o;
+  out.p.sx = sx;
+  out.p.sy = sy;
+  out.p.dsx = dsx;
+  out.p.dsy = dsy;
+  out.p.inv_vn = inv_vn;
+  out.p.r = r;
+  out.p.o = 0;
+  return out;
+}
+
+// The obstacle term of one near pair, in dual numbers, and its gradient
+// chained to the rhs slots and dT, added to the member's partials.
+template <class T, int N>
+DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
+                      const EvPre<T>& e, const KW<T>& w, const Acc<T>& acc,
+                      double& f) {
+  constexpr int C = N + 5;
+  const int r = q.r, o = q.o, R = L.R, Po = L.Po;
+  const T omg = L.gridc[r], frac = L.gridc[R + r];
+  const T wq = omg * e.dT;
+  const T sgl = L.sgl;
+  const T nx = q.dsx * q.inv_vn, ny = q.dsy * q.inv_vn;
+  typedef Dual<T, 5> D5;
+  D5 a[5];
+  const T in[5] = {q.sx, q.sy, nx * sgl, ny * sgl, e.dT};
+  for (int i = 0; i < 5; ++i) {
+    a[i] = D5(in[i]);
+    a[i].d[i] = T(1);
   }
+  const D5 pd = obstacle_pen<D5, T>(a[0], a[1], a[2], a[3], a[4], frac,
+                                    L.ol[o], L.obs + 12 * Po * o,
+                                    L.obs + 12 * Po * o + 6 * Po, Po, w);
+  if (!(pd.v > T(0))) return;
+  f += double(w.wei_sur) * double(wq * pd.v);
+  acc[2 * C] += omg * (w.wei_sur * pd.v) + wq * w.wei_sur * pd.d[4];
+  const T g_sx = wq * (w.wei_sur * pd.d[0]);
+  const T g_sy = wq * (w.wei_sur * pd.d[1]);
+  const T g_u = wq * (w.wei_sur * pd.d[2]);
+  const T g_v = wq * (w.wei_sur * pd.d[3]);
+  const T proj = g_u * nx + g_v * ny;
+  const T g_dsx = sgl * q.inv_vn * (g_u - nx * proj);
+  const T g_dsy = sgl * q.inv_vn * (g_v - ny * proj);
+  acc[2 * C] -= (g_dsx * q.dsx + g_dsy * q.dsy) * e.invdT;
+  const T c0[2] = {g_sx, g_sy};
+  const T c1[2] = {g_dsx * e.invdT, g_dsy * e.invdT};
+  const T* Pf0 = L.P + (size_t)r * C;
+  const T* Pf1 = L.P + (size_t)(R + r) * C;
+  for (int d = 0; d < 2; ++d)
+    for (int c = 0; c < C; ++c)
+      acc[d * C + c] += c0[d] * Pf0[c] + c1[d] * Pf1[c];
+}
+
+// rhs slot i = d (N + 5) + c with its summed partial gsum: back through the
+// jerk form; writes the decision gradient of an inner waypoint and returns
+// the slot's share of d/d dT (the boundary rows scaled by dT, dT^2).
+template <class T, int N>
+DFT_HD T tail_entry(int i, T gsum, const LaneData<T>& L, const EvPre<T>& e,
+                    const KW<T>& w) {
+  constexpr int C = N + 5;
+  const int d = i / C, c = i - d * C;
+  T qt = T(0);                                   // (Q^T rhs_d)_c
+  for (int k = 0; k < C; ++k) qt += L.Q[k * C + c] * T(L.rhs[d * C + k]);
+  const T g_rhs = gsum + e.i5 * (L.qr[i] + qt);
+  if (c >= 3 && c < N + 2) L.g[2 * (c - 3) + d] = w.cost_scale * g_rhs;
+  if (c == 1) return g_rhs * L.bnd[2 + d];
+  if (c == 2) return g_rhs * L.bnd[4 + d] * T(2) * e.dT;
+  if (c == N + 3) return g_rhs * L.bnd[8 + d];
+  if (c == N + 4) return g_rhs * L.bnd[10 + d] * T(2) * e.dT;
+  return T(0);
+}
+
+// f (scaled by cost_scale) at L.x, with its gradient written to L.g; every
+// member returns the same value.
+template <class T, int N, class Team>
+DFT_HD T lane_eval(const Team& tm, const LaneData<T>& L, const KW<T>& w) {
+  constexpr int C = N + 5, NE = 2 * C;
+  constexpr int NIN = KDims<N>::NIN, DP = KDims<N>::DP;
+  constexpr int G = Team::G, KR = Team::kRun, per = kAcc / G;
+  static_assert(NE + 1 <= kAcc && kAcc % G == 0, "gradient slots");
+  const EvPre<T> e = ev_pre<T, N>(L.x[NIN], L.sgl, w);
+
+  // 1. rhs (in double, once) and the jerk form
+  for (int k = 0; k < KR; ++k)
+    for (int i = tm.member(k); i < NE; i += G)
+      L.rhs[i] = double(rhs_entry<T, N>(i, L, e));
+  tm.sync();
+  double en[KR], fr[KR];
+  Acc<T> ac[KR];
+  for (int k = 0; k < KR; ++k) {
+    en[k] = 0.0;
+    fr[k] = 0.0;
+    for (int i = tm.member(k); i < NE; i += G) en[k] += jerk_entry<T, N>(i, L);
+    ac[k].p = L.acc + tm.member(k);
+    ac[k].stride = G;
+    for (int i = 0; i < kAcc; ++i) ac[k][i] = T(0);
+  }
+
+  // 2.-3. rows; the near pairs packed into the ring and run G at a time
+  // (the last step, with no rows, drains the ring). One call site of the
+  // dual pass keeps one copy of its code in the kernel.
+  constexpr int cap = 2 * G;
+  int head = 0, tail = 0;
+  const int J = (L.R + G - 1) / G;
+  for (int j = 0; j <= J; ++j) {
+    const bool drain = j == J;
+    RowOut<T> ro[KR];
+    for (int k = 0; k < KR; ++k)
+      ro[k] = row_pass<T, N>(drain ? L.R : tm.member(k) + G * j, L, e, w,
+                             ac[k], fr[k]);
+    for (int o = 0; o < L.O; ++o) {
+      bool fl[KR];
+      for (int k = 0; k < KR; ++k) fl[k] = ((ro[k].near >> o) & 1u) != 0u;
+      const unsigned mask = tm.ballot(fl);
+      for (int k = 0; k < KR; ++k)
+        if (fl[k]) {
+          NearPair<T> q = ro[k].p;
+          q.o = o;
+          const unsigned below = (1u << tm.member(k)) - 1u;
+          L.ring[(tail + popc(mask & below)) % cap] = q;
+        }
+      tail += popc(mask);
+      const int n = tail - head;
+      if (n >= G || (drain && o == L.O - 1 && n > 0)) {
+        tm.sync();
+        for (int k = 0; k < KR; ++k)
+          if (tm.member(k) < n)
+            dual_pass<T, N>(L.ring[(head + tm.member(k)) % cap], L, e, w,
+                            ac[k], fr[k]);
+        head += n < G ? n : G;
+        tm.sync();
+      }
+    }
+  }
+
+  // 4. combine, then back through the jerk form and _pre
+  T acc[KR][kAcc];
+  for (int k = 0; k < KR; ++k)
+    for (int i = 0; i < kAcc; ++i) acc[k][i] = ac[k][i];
+  tm.reduce_scatter(acc);
+  const double energy = tm.sum(en);
+  const double f_rows = tm.sum(fr);
+  T gdt[KR];
+  for (int k = 0; k < KR; ++k) {
+    gdt[k] = T(0);
+    for (int q = 0; q < per; ++q) {
+      const int i = tm.member(k) * per + q;
+      if (i < NE)
+        gdt[k] += tail_entry<T, N>(i, acc[k][q], L, e, w);
+      else if (i == NE)
+        gdt[k] += acc[k][q];
+    }
+  }
+  T g_dT = tm.sum(gdt);
+  const T jerk = T(energy * double(e.i5));
+  const T f = T((double(jerk) + double(w.wei_time * e.Ttot)) + f_rows);
+  g_dT -= T(5) * jerk * e.invdT;
   const T g_T = w.wei_time + g_dT / T(N);
-  const T dTdvt = vt > T(0) ? vt + T(1) : -(vt - T(1)) / (qneg * qneg);
-  for (int i = 0; i < DP; ++i) g[i] = T(0);
-  for (int j = 0; j < N - 1; ++j)
-    for (int d = 0; d < 2; ++d) g[2 * j + d] = w.cost_scale * g_rhs[d][3 + j];
-  g[NIN] = w.cost_scale * (g_T * dTdvt * w.sigma);
+  const T dTdvt =
+      e.vt > T(0) ? e.vt + T(1) : -(e.vt - T(1)) / (e.qneg * e.qneg);
+  for (int k = 0; k < KR; ++k)
+    if (tm.member(k) == 0) {
+      L.g[NIN] = w.cost_scale * (g_T * dTdvt * w.sigma);
+      for (int i = NIN + 1; i < DP; ++i) L.g[i] = T(0);
+    }
+  tm.sync();
   return w.cost_scale * f;
 }
 

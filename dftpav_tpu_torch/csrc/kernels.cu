@@ -6,29 +6,46 @@
 //   dftpav_solve_fused kernel B: the whole L-BFGS solve for every lane
 //                      (replaces dftpav_tpu/ops/pallas_solve.py _kernel)
 //
-// Mapping: a group of kGroup = 8 threads of one warp per lane (scenario),
-// groups grid-striding over lanes, each lane exiting on its own. The group
-// splits the lane's sample rows (thread j takes rows j, j+8, ...) and
-// all-reduces the per-lane sums with __shfl_xor_sync, so every member holds
-// the identical objective and gradient and takes the identical solver
-// decisions. The solver state (16 decision coordinates of iterate, gradient,
-// direction and the m=16 history pairs) is split too: each member keeps 2
-// coordinates, and dot products are all-reduced the same way. The shared
-// constants P, Q and the quadrature rows (~28 KB at the bench class) are
-// staged once per block in shared memory.
+// Mapping: one warp per lane (scenario). The warp is a team of 32 members
+// (team.cuh, kcost.cuh lane_eval): member m takes sample rows m, m + 32,
+// ...; the (row, obstacle) pairs that may carry an obstacle penalty are
+// packed by a ballot into batches of 32 and run through the dual-number
+// obstacle block together; per-lane sums are xor-butterfly all-reduces and
+// the gradient partials a reduce-scatter, so every member holds bitwise
+// identical totals and takes identical solver decisions. The solver state
+// leaves the registers: member m holds decision coordinate m % 16 of the
+// iterate, gradient, direction and trial point; the m = 16 history pairs,
+// the evaluated point, the rhs (in double), the lane's obstacle
+// coefficients, the near-pair ring and the members' gradient partials sit
+// in the warp's slice of shared memory, beside the block's copy of the
+// sample maps (float and double), the jerk form and the quadrature rows.
 //
-// Bound on the H100: instruction latency. Per objective evaluation a lane
-// does ~170 rows of scalar arithmetic (sample maps, 16 corridor hinges,
-// feasibility, and -- only near an obstacle -- the dual-number obstacle
-// block), and a thread needs 255 registers with spills. With one thread per
-// lane, B = 8192 lanes fill only 256 warps (~2 per SM) and little latency is
-// hidden; 8 threads per lane give 8x the warps and 1/8 of the rows per
-// thread. Measured at B = 8192 on an H100 80GB HBM3 (700 W), kernel B took
-// 2.08 s with 1 thread per lane, 1.21 s with 2, 0.91 s with 4 and 0.87 s
-// with 8 (PERF.md, Findings).
+// Kernel B runs a persistent grid: as many blocks as fit on the card (the
+// occupancy API; 16 warps each, fewer where a class's shared memory needs
+// it; one block of 16 per SM at the bench class), each warp taking its
+// next lane from a global counter (atomicAdd) whenever its lane exits, so
+// no SM slot waits on a block's slowest lane and there are no waves. Which warp solves which lane
+// changes from run to run; a lane's arithmetic does not, so two launches
+// on the same inputs give bitwise identical outputs. Before it, a transpose
+// copies the half-planes lane-major (kcost.cuh planes_lane_major), so that
+// a warp reads its lane's rows in whole lines; the slabs are lane-minor,
+// and the ~170 evaluations of a lane would otherwise fetch a 32-byte
+// sector for every 4-byte value.
 //
-// A launch allocates nothing: the caller passes every output. Each entry
-// point returns cudaGetLastError() after its launch.
+// Bound on the H100: instruction issue and latency, not bytes (PERF.md,
+// Findings). The earlier design (8 threads per lane, 4 lanes per warp)
+// lost 61% of its time to lanes waiting on each other, mostly through one
+// lane's obstacle block; here each lane has its own warp, the obstacle block is
+// convergent, and a separating-axis bound keeps the dual-number pass to
+// the pairs that can have a penalty (~58 of ~224 in reach per
+// evaluation). The code is kept small on purpose (loops rolled, one call
+// site of the dual pass): unrolled, kernel B doubled to ~15,600 machine
+// instructions and ran 2.8x slower, its 16 warps missing the instruction
+// caches.
+//
+// A launch allocates nothing: the caller passes every output, the lane
+// counter (zeroed) and the lane-major scratch. Each entry point returns
+// cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 
@@ -39,44 +56,11 @@ using namespace dftpav;
 
 namespace {
 
-constexpr int kN = 8;      // pieces per segment of the ported class
-constexpr int kGroup = 8;  // threads per lane: divides DP = 16 and 32
+constexpr int kN = 8;        // pieces per segment of the ported class
+constexpr int kMaxWarps = 16;  // warps (lanes in flight) per block, at most
+constexpr int kMaxThreads = 32 * kMaxWarps;
 typedef KDims<kN> Dm;
-
-// G threads of one warp working on one lane (kcost.cuh Solo is G = 1).
-// sum() is an xor butterfly: a + b == b + a exactly at every level, so all
-// members end with bitwise identical totals.
-template <int G>
-struct WarpGroup {
-  static constexpr int size = G;
-  int r;
-  unsigned mask;
-  DFT_HD int rank() const { return r; }
-  template <class V>
-  DFT_HD V sum(V v) const {
-#ifdef __CUDA_ARCH__
-    for (int off = G / 2; off > 0; off >>= 1)
-      v += __shfl_xor_sync(mask, v, off, G);
-#endif
-    return v;
-  }
-  template <class V>
-  DFT_HD V bcast(V v, int src) const {
-#ifdef __CUDA_ARCH__
-    v = __shfl_sync(mask, v, src, G);
-#endif
-    return v;
-  }
-};
-
-template <int G>
-__device__ WarpGroup<G> group_of_thread() {
-  WarpGroup<G> g;
-  const int t = threadIdx.x & 31;
-  g.r = t & (G - 1);
-  g.mask = G == 32 ? 0xffffffffu : (((1u << G) - 1u) << (t & ~(G - 1)));
-  return g;
-}
+typedef WarpTeam<Dm::DP> Team;
 
 struct Args {
   const float *x, *f0, *g0;
@@ -84,17 +68,104 @@ struct Args {
   const float *P, *Q, *gridc;
   float *x_out, *f_out, *g_out;
   int* info;
+  int* queue;        // kernel B's lane counter, zero at launch
+  float* planes;     // kernel B's lane-major half-planes [B][5 H][R]
   int B, R, H, O, Po;
 };
 
-__device__ void stage_consts(const Args& a, float* smem) {
+// Byte offsets in shared memory: the class constants once per block, then
+// one slice per warp.
+struct Layout {
+  size_t pd, p, q, gridc, warp0, slice;
+  size_t rhs, qr, x, g, bnd, hs, hy, ys, alpha, pf, ol, ring, acc, obs;
+};
+
+__host__ __device__ inline size_t up16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+__host__ __device__ inline Layout layout(int R, int O, int Po) {
+  const size_t C = Dm::C, DP = Dm::DP;
+  Layout l;
+  l.pd = 0;
+  l.p = l.pd + 8 * 3 * R * C;
+  l.q = l.p + 4 * 3 * R * C;
+  l.gridc = l.q + 4 * C * C;
+  l.warp0 = up16(l.gridc + 4 * 2 * (size_t)R);
+  size_t o = 0;
+  l.rhs = o;   o += 8 * 2 * C;
+  l.qr = o;    o += 4 * 2 * C;
+  l.x = o;     o += 4 * DP;
+  l.g = o;     o += 4 * DP;
+  l.bnd = o;   o += 4 * 12;
+  l.hs = o;    o += 4 * kMem * DP;
+  l.hy = o;    o += 4 * kMem * DP;
+  l.ys = o;    o += 4 * kMem;
+  l.alpha = o; o += 4 * kMem;
+  l.pf = o;    o += 4 * kMaxPast;
+  l.ol = o;    o += sizeof(ObsLane<float>) * (size_t)O;
+  l.ring = o;  o += sizeof(NearPair<float>) * 2 * Team::G;
+  l.acc = o;   o += 4 * kAcc * Team::G;
+  l.obs = o;   o += 4 * 12 * (size_t)O * Po;
+  l.slice = up16(o);
+  return l;
+}
+
+__device__ void stage_consts(const Args& a, unsigned char* sm,
+                             const Layout& l) {
   const int C = Dm::C;
   const int nP = 3 * a.R * C, nQ = C * C, nG = 2 * a.R;
-  for (int i = threadIdx.x; i < nP; i += blockDim.x) smem[i] = a.P[i];
-  for (int i = threadIdx.x; i < nQ; i += blockDim.x) smem[nP + i] = a.Q[i];
-  for (int i = threadIdx.x; i < nG; i += blockDim.x)
-    smem[nP + nQ + i] = a.gridc[i];
+  double* Pd = (double*)(sm + l.pd);
+  float* P = (float*)(sm + l.p);
+  float* Q = (float*)(sm + l.q);
+  float* gridc = (float*)(sm + l.gridc);
+  for (int i = threadIdx.x; i < nP; i += blockDim.x) {
+    const float v = a.P[i];
+    P[i] = v;
+    Pd[i] = double(v);
+  }
+  for (int i = threadIdx.x; i < nQ; i += blockDim.x) Q[i] = a.Q[i];
+  for (int i = threadIdx.x; i < nG; i += blockDim.x) gridc[i] = a.gridc[i];
   __syncthreads();
+}
+
+// This warp's view of its slice, and the block's constants.
+struct Slice {
+  LaneData<float> L;
+  SolverMem<float> M;
+  float* bnd;
+  float* obs;
+  ObsLane<float>* ol;
+};
+
+__device__ Slice slice_of(const Args& a, unsigned char* sm, const Layout& l,
+                          int wid) {
+  unsigned char* w = sm + l.warp0 + (size_t)wid * l.slice;
+  Slice s;
+  s.bnd = (float*)(w + l.bnd);
+  s.obs = (float*)(w + l.obs);
+  s.ol = (ObsLane<float>*)(w + l.ol);
+  LaneData<float>& L = s.L;
+  L.Pd = (const double*)(sm + l.pd);
+  L.P = (const float*)(sm + l.p);
+  L.Q = (const float*)(sm + l.q);
+  L.gridc = (const float*)(sm + l.gridc);
+  L.R = a.R; L.H = a.H; L.O = a.O; L.Po = a.Po;
+  L.sgl = 0.f;
+  L.plane_row = 0;
+  L.bnd = s.bnd;
+  L.obs = s.obs;
+  L.ol = s.ol;
+  L.x = (float*)(w + l.x);
+  L.g = (float*)(w + l.g);
+  L.rhs = (double*)(w + l.rhs);
+  L.qr = (float*)(w + l.qr);
+  L.ring = (NearPair<float>*)(w + l.ring);
+  L.acc = (float*)(w + l.acc);
+  s.M.s = (float*)(w + l.hs);
+  s.M.y = (float*)(w + l.hy);
+  s.M.ys = (float*)(w + l.ys);
+  s.M.alpha = (float*)(w + l.alpha);
+  s.M.pf = (float*)(w + l.pf);
+  return s;
 }
 
 __device__ Slabs<float> slabs_of(const Args& a) {
@@ -104,76 +175,136 @@ __device__ Slabs<float> slabs_of(const Args& a) {
   return s;
 }
 
-template <int G>
-__global__ void eval_fg_kernel(Args a, KW<float> w) {
-  extern __shared__ float smem[];
-  stage_consts(a, smem);
-  const float* P = smem;
-  const float* Q = smem + 3 * a.R * Dm::C;
-  const float* gridc = Q + Dm::C * Dm::C;
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    eval_fg_kernel(Args a, KW<float> w) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout l = layout(a.R, a.O, a.Po);
+  stage_consts(a, sm, l);
+  const int wid = threadIdx.x >> 5;
+  Team tm;
+  tm.m = threadIdx.x & 31;
+  Slice s = slice_of(a, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
-  const WarpGroup<G> grp = group_of_thread<G>();
-  const int stride = gridDim.x * blockDim.x / G;
-  for (int lane = (blockIdx.x * blockDim.x + threadIdx.x) / G; lane < a.B;
-       lane += stride) {
-    float x[Dm::DP], g[Dm::DP];
-    for (int i = 0; i < Dm::DP; ++i) x[i] = a.x[(size_t)i * a.B + lane];
-    const float f = lane_fg<float, kN>(x, g, sl, lane, P, Q, gridc, w, grp);
-    if (grp.rank() == 0) {
-      a.f_out[lane] = f;
-      for (int i = 0; i < Dm::DP; ++i) a.g_out[(size_t)i * a.B + lane] = g[i];
-    }
+  const int c = tm.coord(0);
+  const int nw = blockDim.x >> 5;
+  for (int lane = blockIdx.x * nw + wid; lane < a.B;
+       lane += gridDim.x * nw) {
+    stage_lane(tm, sl, lane, s.bnd, s.obs, s.ol);
+    s.L.sgl = a.misc[lane];
+    s.L.planes = planes_slab(sl, lane);
+    s.L.plane_row = (size_t)a.B;
+    s.L.x[c] = a.x[(size_t)c * a.B + lane];
+    tm.sync();
+    const float f = lane_eval<float, kN>(tm, s.L, w);
+    if (tm.m < Dm::DP) a.g_out[(size_t)tm.m * a.B + lane] = s.L.g[tm.m];
+    if (tm.m == 0) a.f_out[lane] = f;
+    tm.sync();
   }
 }
 
-template <int G>
-__global__ void solve_kernel(Args a, KW<float> w, LP<float> p) {
-  extern __shared__ float smem[];
-  stage_consts(a, smem);
-  const float* P = smem;
-  const float* Q = smem + 3 * a.R * Dm::C;
-  const float* gridc = Q + Dm::C * Dm::C;
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    solve_kernel(Args a, KW<float> w, LP<float> p) {
+  extern __shared__ __align__(16) unsigned char sm[];
+  const Layout l = layout(a.R, a.O, a.Po);
+  stage_consts(a, sm, l);
+  const int wid = threadIdx.x >> 5;
+  Team tm;
+  tm.m = threadIdx.x & 31;
+  Slice s = slice_of(a, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
-  const WarpGroup<G> grp = group_of_thread<G>();
-  const int stride = gridDim.x * blockDim.x / G;
-  for (int lane = (blockIdx.x * blockDim.x + threadIdx.x) / G; lane < a.B;
-       lane += stride) {
-    float x0[Dm::DP], g0[Dm::DP], xo[Dm::DP], fo;
-    for (int i = 0; i < Dm::DP; ++i) {
-      x0[i] = a.x[(size_t)i * a.B + lane];
-      g0[i] = a.g0[(size_t)i * a.B + lane];
-    }
-    const SolveOut o = lane_solve<float, kN>(x0, a.f0[lane], g0, sl, lane, P,
-                                             Q, gridc, w, p, xo, &fo, grp);
-    if (grp.rank() == 0) {
-      for (int i = 0; i < Dm::DP; ++i)
-        a.x_out[(size_t)i * a.B + lane] = xo[i];
+  const int c = tm.coord(0);
+  for (;;) {
+    int lane = 0;
+    if (tm.m == 0) lane = atomicAdd(a.queue, 1);
+    lane = __shfl_sync(0xffffffffu, lane, 0);
+    if (lane >= a.B) break;
+    stage_lane(tm, sl, lane, s.bnd, s.obs, s.ol);
+    s.L.sgl = a.misc[lane];
+    s.L.planes = planes_lane_major((const float*)a.planes, lane, a.H, a.R);
+    s.L.plane_row = 1;
+    const float x0 = a.x[(size_t)c * a.B + lane];
+    const float g0 = a.g0[(size_t)c * a.B + lane];
+    float xo, fo;
+    const SolveOut o = lane_solve<float, kN>(tm, s.L, w, p, s.M, &x0,
+                                             a.f0[lane], &g0, &xo, &fo);
+    if (tm.m < Dm::DP) a.x_out[(size_t)tm.m * a.B + lane] = xo;
+    if (tm.m == 0) {
       a.f_out[lane] = fo;
       a.info[lane] = o.status;
       a.info[a.B + lane] = o.k;
       a.info[2 * a.B + lane] = o.n_evals;
     }
+    tm.sync();
   }
 }
 
-size_t smem_bytes(const Args& a) {
-  return sizeof(float) * (size_t)(3 * a.R * Dm::C + Dm::C * Dm::C + 2 * a.R);
+// planes[b][q][r] = plane q's (r, b): 32 x 32 tiles through shared memory.
+__global__ void lane_major_kernel(Args a) {
+  __shared__ float tile[32][33];
+  const Slabs<float> sl = slabs_of(a);
+  const int q = blockIdx.z;
+  const float* src = lane_major_src(sl, q);
+  const int b0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int r = r0 + i, b = b0 + threadIdx.x;
+    if (r < a.R && b < a.B) tile[i][threadIdx.x] = src[(size_t)r * a.B + b];
+  }
+  __syncthreads();
+  const size_t nq = 5 * (size_t)a.H;
+  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+    const int b = b0 + i, r = r0 + threadIdx.x;
+    if (b < a.B && r < a.R)
+      a.planes[((size_t)b * nq + q) * a.R + r] = tile[threadIdx.x][i];
+  }
 }
 
-// Launches `kernel` with kGroup threads per lane, 64 threads per block, and
-// the constants' shared memory; `params` are its arguments after Args.
+// A persistent launch for the class (R rows, O obstacles of Po pieces):
+// warps per block (kMaxWarps, or as many as fit in the card's shared
+// memory per block), the shared memory, blocks per SM and in all.
+struct Plan {
+  int warps, smem, per_sm, blocks;
+};
+
+template <class K>
+cudaError_t plan(K kernel, int R, int O, int Po, Plan* pl) {
+  int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const Layout l = layout(R, O, Po);
+  int nw = kMaxWarps;
+  while (nw > 0 && l.warp0 + nw * l.slice > (size_t)max_smem) --nw;
+  if (nw == 0) return cudaErrorInvalidConfiguration;
+  const size_t smem = l.warp0 + nw * l.slice;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      32 * nw, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  pl->warps = nw;
+  pl->smem = (int)smem;
+  pl->per_sm = per_sm;
+  pl->blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// Launches `kernel` on a persistent grid: every block that fits, at most
+// one warp per lane; `params` are its arguments after Args.
 template <class K, class... Params>
 cudaError_t launch(K kernel, const Args& a, cudaStream_t stream,
                    const Params&... params) {
-  const size_t smem = smem_bytes(a);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = 64;
-  const int blocks = (int)(((size_t)a.B * kGroup + threads - 1) / threads);
-  kernel<<<blocks, threads, smem, stream>>>(a, params...);
+  Plan pl;
+  const cudaError_t err = plan(kernel, a.R, a.O, a.Po, &pl);
+  if (err != cudaSuccess) return err;
+  const int need = (a.B + pl.warps - 1) / pl.warps;
+  const int blocks = pl.blocks < need ? pl.blocks : need;
+  kernel<<<blocks, 32 * pl.warps, pl.smem, stream>>>(a, params...);
   return cudaGetLastError();
 }
 
@@ -186,6 +317,7 @@ Args make_args(const float* x, const float* f0, const float* g0,
   a.x = x; a.f0 = f0; a.g0 = g0; a.bnd = bnd; a.misc = misc; a.cn = cn;
   a.cp = cp; a.cm = cm; a.obs = obs; a.P = P; a.Q = Q; a.gridc = gridc;
   a.x_out = nullptr; a.f_out = nullptr; a.g_out = nullptr; a.info = nullptr;
+  a.queue = nullptr; a.planes = nullptr;
   a.B = B; a.R = R; a.H = H; a.O = O; a.Po = Po;
   return a;
 }
@@ -206,23 +338,49 @@ int dftpav_max_past() { return kMaxPast; }
 const char* dftpav_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// What kernel `which` (0: A, 1: B) gets on this card for R rows, O
+// obstacles of Po pieces: out[0] registers per thread, out[1] local memory
+// per thread (bytes: spills and stack), out[2] resident warps per SM,
+// out[3] blocks of the persistent grid, out[4] shared memory per block.
+int dftpav_kernel_info(int which, int R, int O, int Po, int* out) {
+  cudaFuncAttributes fa;
+  const void* k = which == 0 ? (const void*)eval_fg_kernel
+                             : (const void*)solve_kernel;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return (int)err;
+  Plan pl;
+  err = which == 0 ? plan(eval_fg_kernel, R, O, Po, &pl)
+                   : plan(solve_kernel, R, O, Po, &pl);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = pl.per_sm * pl.warps;
+  out[3] = pl.blocks;
+  out[4] = pl.smem;
+  return 0;
+}
+
 // x [DP, B] -> f [B], g [DP, B]. wts: host vector of W_LEN floats.
 int dftpav_eval_fg(const float* x, const float* bnd, const float* misc,
                    const float* cn, const float* cp, const float* cm,
                    const float* obs, const float* P, const float* Q,
                    const float* gridc, const float* wts, int B, int R, int H,
                    int O, int Po, float* f_out, float* g_out, void* stream) {
+  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(x, nullptr, nullptr, bnd, misc, cn, cp, cm, obs, P, Q,
                      gridc, B, R, H, O, Po);
   a.f_out = f_out;
   a.g_out = g_out;
-  return (int)launch(eval_fg_kernel<kGroup>, a, (cudaStream_t)stream,
+  return (int)launch(eval_fg_kernel, a, (cudaStream_t)stream,
                      make_kw<float>(wts));
 }
 
 // Whole solve from (x0 [DP, B], f0 [B], g0 [DP, B]) -> x_out [DP, B],
 // f_out [B], info [3, B] int32 = status, k clamped to max_iter, n_evals.
-// wts: W_LEN floats; lbp: L_LEN floats (host vectors).
+// wts: W_LEN floats; lbp: L_LEN floats (host vectors). queue: one int32,
+// zero; planes: scratch of B * 5 H * R floats.
 int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
                        const float* bnd, const float* misc, const float* cn,
                        const float* cp, const float* cm, const float* obs,
@@ -230,14 +388,24 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
                        const float* wts, const float* lbp, int max_iter,
                        int max_ls, int past, int adaptive, int B, int R,
                        int H, int O, int Po, float* x_out, float* f_out,
-                       int* info, void* stream) {
+                       int* info, int* queue, float* planes, void* stream) {
+  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0)
+    return (int)cudaErrorInvalidValue;
   Args a = make_args(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q, gridc, B,
                      R, H, O, Po);
   a.x_out = x_out;
   a.f_out = f_out;
   a.info = info;
-  return (int)launch(solve_kernel<kGroup>, a, (cudaStream_t)stream,
-                     make_kw<float>(wts),
+  a.queue = queue;
+  a.planes = planes;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (H > 0) {
+    const dim3 grid((B + 31) / 32, (R + 31) / 32, 5 * H);
+    lane_major_kernel<<<grid, dim3(32, 8), 0, st>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)launch(solve_kernel, a, st, make_kw<float>(wts),
                      make_lp<float>(lbp, max_iter, max_ls, past, adaptive));
 }
 

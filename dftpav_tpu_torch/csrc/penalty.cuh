@@ -21,24 +21,48 @@ struct CorridorRow {
   T gu, gv;  // dA / du, dA / dv
 };
 
-// One row from its half-planes (cnx, cny: normals; cpx, cpy: points; cmh:
-// 0/1 masks; H of each). The derivatives are summed only when want_g.
+// The H half-planes of one sample row where they lie in memory: plane q
+// (normal x, y of half-plane h at q = 2h, 2h + 1; its point likewise; its
+// 0/1 mask at q = h) at n / p / m[q * stride].
 template <class T>
-DFT_HD CorridorRow<T> corridor_row(T sx, T sy, T u, T v, const T* cnx,
-                                   const T* cny, const T* cpx, const T* cpy,
-                                   const T* cmh, int H, const T (&le)[4][2],
-                                   bool want_g) {
+struct Planes {
+  const T* n;
+  const T* p;
+  const T* m;
+  size_t stride;
+};
+
+// One row from its half-planes. The derivatives are summed only when
+// want_g. The planes are read once, into arrays indexed only at compile
+// time (H <= kMaxH), so they stay in registers; the sums run over
+// (vertex e, half-plane h < H) in that order.
+template <class T>
+DFT_HD CorridorRow<T> corridor_row(T sx, T sy, T u, T v, const Planes<T>& pl,
+                                   int H, const T (&le)[4][2], bool want_g) {
+  T cnx[kMaxH], cny[kMaxH], cpx[kMaxH], cpy[kMaxH], cmh[kMaxH];
+  DFT_UNROLL
+  for (int h = 0; h < kMaxH; ++h)
+    if (h < H) {
+      cnx[h] = pl.n[(size_t)(2 * h) * pl.stride];
+      cny[h] = pl.n[(size_t)(2 * h + 1) * pl.stride];
+      cpx[h] = pl.p[(size_t)(2 * h) * pl.stride];
+      cpy[h] = pl.p[(size_t)(2 * h + 1) * pl.stride];
+      cmh[h] = pl.m[(size_t)h * pl.stride];
+    }
   CorridorRow<T> c;
   c.A = T(0);
   c.gx = T(0);
   c.gy = T(0);
   c.gu = T(0);
   c.gv = T(0);
+  DFT_UNROLL
   for (int e = 0; e < 4; ++e) {
     const T lex = le[e][0], ley = le[e][1];
     const T bx = sx + u * lex - v * ley;
     const T by = sy + v * lex + u * ley;
-    for (int h = 0; h < H; ++h) {
+    DFT_UNROLL
+    for (int h = 0; h < kMaxH; ++h) {
+      if (h >= H) break;
       const T viol = cnx[h] * (bx - cpx[h]) + cny[h] * (by - cpy[h]);
       c.A += sl1(viol) * cmh[h];
       if (want_g) {
@@ -85,16 +109,13 @@ DFT_HD PenaltyRow<T> penalty_row(const PenaltyArgs<T>& a, int r, int b,
   p.u = dx * p.inv_vn;
   p.v = dy * p.inv_vn;
   p.wq = a.wq[i];
-  T cnx[kMaxH], cny[kMaxH], cpx[kMaxH], cpy[kMaxH], cmh[kMaxH];
-  for (int h = 0; h < a.H; ++h) {
-    cnx[h] = a.cn[(2 * h) * R * B + i];
-    cny[h] = a.cn[(2 * h + 1) * R * B + i];
-    cpx[h] = a.cp[(2 * h) * R * B + i];
-    cpy[h] = a.cp[(2 * h + 1) * R * B + i];
-    cmh[h] = a.cm[h * R * B + i];
-  }
-  p.c = corridor_row(a.sig[i], a.sig[R * B + i], p.u, p.v, cnx, cny, cpx, cpy,
-                     cmh, a.H, a.le, want_g);
+  Planes<T> pl;
+  pl.n = a.cn + i;
+  pl.p = a.cp + i;
+  pl.m = a.cm + i;
+  pl.stride = R * B;
+  p.c = corridor_row(a.sig[i], a.sig[R * B + i], p.u, p.v, pl, a.H, a.le,
+                     want_g);
   return p;
 }
 

@@ -12,7 +12,10 @@
 //
 // Integer state (k, line-search count, status, history bound) is int, where
 // the TPU carried floats for Mosaic. The history is a ring indexed newest
-// first, where the TPU shifted a tuple of 16 arrays.
+// first, where the TPU shifted a tuple of 16 arrays. The solver runs on a
+// team (team.cuh): on the card the lane's warp, each thread holding one
+// decision coordinate of every vector in registers, the history and the
+// evaluated point in shared memory.
 #pragma once
 
 #include "kcost.cuh"
@@ -56,82 +59,85 @@ DFT_HD LP<T> make_lp(const S* a, int max_iter, int max_ls, int past,
   return p;
 }
 
-// Dot product of two vectors whose coordinates are split over the group:
-// each member holds L of them; the partial sums are all-reduced.
-template <class T, int L, class Grp>
-DFT_HD T gdot(const T* a, const T* b, const Grp& grp) {
-  T s = T(0);
-  for (int i = 0; i < L; ++i) s += a[i] * b[i];
-  return grp.sum(s);
-}
-template <class T, int DP>
-DFT_HD T vmaxabs(const T* a) {
-  T s = m_abs(a[0]);
-  for (int i = 1; i < DP; ++i) s = m_max(s, m_abs(a[i]));
-  return s;
-}
-
 struct SolveOut {
   int status, k, n_evals;
 };
 
-// Solve lane `lane` from x0 with its objective value f0 and gradient g0
-// already evaluated (kernel A); writes the final base point to x_out and its
-// objective to *f_out. Returns status, k clamped to max_iter, evaluations.
-//
-// With a group of G threads per lane, each member keeps L = DP / G of the
-// decision coordinates of the iterate, gradient, direction and the m = 16
-// history pairs; dot products are all-reduced over the group, and the full
-// trial point is gathered for the objective (lane_fg returns the full
-// gradient to every member). Every reduced value is bitwise identical on all
-// members (see Solo), so all members take the same branches.
-template <class T, int N, class Grp = Solo>
-DFT_HD SolveOut lane_solve(const T* x0, T f0, const T* g0, const Slabs<T>& sl,
-                           int lane, const T* P, const T* Q, const T* gridc,
-                           const KW<T>& w, const LP<T>& p, T* x_out,
-                           T* f_out, const Grp& grp = Grp()) {
-  constexpr int DP = KDims<N>::DP;
-  constexpr int L = DP / Grp::size;
-  static_assert(DP % Grp::size == 0, "group size must divide DP");
-  const int me = grp.rank();
-  T xp[L], gp[L], d[L], xt[L], gt[L];
-  T xt_full[DP], gt_full[DP];
-  T lm_s[kMem][L], lm_y[kMem][L], lm_ys[kMem], alpha[kMem];
-  T pf[kMaxPast];
+// Where the solver keeps what it indexes at run time: the m = 16 history
+// pairs s, y [kMem][DP] (newest first from `head`, a ring), their s.y, the
+// two-loop's alphas and the past-f window (the team's scratch: shared
+// memory on the card).
+template <class T>
+struct SolverMem {
+  T* s;
+  T* y;
+  T* ys;
+  T* alpha;
+  T* pf;
+};
+
+// Dot product and max-abs of solver vectors whose coordinates the team
+// holds kVec at a time (team.cuh).
+template <class T, class Team>
+DFT_HD T tdot(const Team& tm, const T* a, const T* b) {
+  T pr[Team::kVec];
+  for (int k = 0; k < Team::kVec; ++k) pr[k] = a[k] * b[k];
+  return tm.vsum(pr);
+}
+template <class T, class Team>
+DFT_HD T tmaxabs(const Team& tm, const T* a) {
+  T t[Team::kVec];
+  for (int k = 0; k < Team::kVec; ++k) t[k] = m_abs(a[k]);
+  return tm.vmax(t);
+}
+
+// Solve the lane whose data L holds, from x0 with its objective value f0
+// and gradient g0 already evaluated (kernel A); x0, g0 and x_out are this
+// object's coordinates of the vectors (coordinate tm.coord(k) at k).
+// Writes the final base point to x_out and its objective to *f_out.
+// Returns status, k clamped to max_iter, evaluations. Every team-reduced
+// value is bitwise identical on all members, so all members take the same
+// branches.
+template <class T, int N, class Team>
+DFT_HD SolveOut lane_solve(const Team& tm, const LaneData<T>& L,
+                           const KW<T>& w, const LP<T>& p,
+                           const SolverMem<T>& M, const T* x0, T f0,
+                           const T* g0, T* x_out, T* f_out) {
+  constexpr int DP = KDims<N>::DP, V = Team::kVec;
+  T xp[V], gp[V], d[V], xt[V], gt[V];
   const int past = p.past > 1 ? p.past : 1;
   const bool use_past = p.past > 0;
 
-  // this member's slice of a full vector (compile-time indices only)
-  for (int i = 0; i < DP; ++i)
-    if (i / L == me) {
-      xp[i % L] = x0[i];
-      gp[i % L] = g0[i];
-      d[i % L] = -g0[i];
-    }
+  for (int k = 0; k < V; ++k) {
+    xp[k] = x0[k];
+    gp[k] = g0[k];
+    d[k] = -g0[k];
+  }
   T fp = f0;
-  const bool already = vmaxabs<T, DP>(g0) / m_max(T(1), vmaxabs<T, DP>(x0)) <
-                       p.g_eps;
-  const T dginit0 = gdot<T, L>(gp, d, grp);
-  T stp = T(1) / m_max(m_sqrt(gdot<T, L>(d, d, grp)), T(1e-30));
+  const bool already =
+      tmaxabs(tm, g0) / m_max(T(1), tmaxabs(tm, x0)) < p.g_eps;
+  const T dginit0 = tdot(tm, gp, d);
+  T stp = T(1) / m_max(m_sqrt(tdot(tm, d, d)), T(1e-30));
   T finit = f0, dgtest = p.f_dec * dginit0, dstest = p.s_curv * dginit0;
   T mu = T(0), nu = p.max_step;
   bool brackt = false, touched = false;
   int lscnt = 0, bound = 0, head = 0, k = 1, n_evals = 1;
-  pf[0] = f0;
-  for (int i = 1; i < past; ++i) pf[i] = T(0);
+  M.pf[0] = f0;
+  for (int i = 1; i < past; ++i) M.pf[i] = T(0);
   int status = already ? ST_CONVERGENCE : ST_RUNNING;
 
   while (status == ST_RUNNING) {
-    for (int i = 0; i < L; ++i) xt[i] = xp[i] + stp * d[i];
-    for (int i = 0; i < DP; ++i) xt_full[i] = grp.bcast(xt[i % L], i / L);
-    const T ft =
-        lane_fg<T, N, Grp>(xt_full, gt_full, sl, lane, P, Q, gridc, w, grp);
+    for (int c = 0; c < V; ++c) {
+      xt[c] = xp[c] + stp * d[c];
+      L.x[tm.coord(c)] = xt[c];
+    }
+    tm.sync();
+    const T ft = lane_eval<T, N>(tm, L, w);
     ++n_evals;
-    for (int i = 0; i < DP; ++i)
-      if (i / L == me) gt[i % L] = gt_full[i];
+    for (int c = 0; c < V; ++c) gt[c] = L.g[tm.coord(c)];
 
     // Lewis-Overton decision
-    const T dg = gdot<T, L>(gt, d, grp);
+    const T dg = tdot(tm, gt, d);
     const bool bad = !m_isfinite(ft);
     const bool early =
         use_past && (m_abs(finit - ft) / (m_abs(finit) + T(1)) < p.delta_past);
@@ -159,17 +165,16 @@ DFT_HD SolveOut lane_solve(const T* x0, T f0, const T* g0, const Slabs<T>& sl,
     if (ls_fail) status = code == 2 ? ST_MAXLS : code;
 
     // iteration end for an accepted trial
-    const bool conv = vmaxabs<T, DP>(gt_full) /
-                          m_max(T(1), vmaxabs<T, DP>(xt_full)) <
-                      p.g_eps;
+    const bool conv =
+        tmaxabs(tm, gt) / m_max(T(1), tmaxabs(tm, xt)) < p.g_eps;
     if (accept && conv) status = ST_CONVERGENCE;
     if (use_past) {
       const int slot = k % past;
-      const T pf_slot = pf[slot];
+      const T pf_slot = M.pf[slot];
       const T rate = m_abs(pf_slot - ft) / m_max(T(1), m_abs(ft));
       const bool stop = (k >= past) && (rate < p.delta);
       if (accept && status == ST_RUNNING && stop) status = ST_STOP;
-      if (accept) pf[slot] = status == ST_RUNNING ? ft : pf_slot;
+      if (accept) M.pf[slot] = status == ST_RUNNING ? ft : pf_slot;
     }
     // a running lane finishes its whole state transition before MAXITER
     const bool running = accept && status == ST_RUNNING;
@@ -177,44 +182,48 @@ DFT_HD SolveOut lane_solve(const T* x0, T f0, const T* g0, const Slabs<T>& sl,
 
     if (accept) {
       // cautious history update
-      T s[L], y[L];
-      for (int i = 0; i < L; ++i) {
-        s[i] = xt[i] - xp[i];
-        y[i] = gt[i] - gp[i];
+      T s[V], y[V];
+      for (int c = 0; c < V; ++c) {
+        s[c] = xt[c] - xp[c];
+        y[c] = gt[c] - gp[c];
       }
-      const T ys = gdot<T, L>(y, s, grp);
-      const T yy = gdot<T, L>(y, y, grp);
-      const T cau = gdot<T, L>(s, s, grp) *
-                    m_sqrt(gdot<T, L>(gp, gp, grp)) * p.cautious;
+      const T ys = tdot(tm, y, s);
+      const T yy = tdot(tm, y, y);
+      const T cau = tdot(tm, s, s) * m_sqrt(tdot(tm, gp, gp)) * p.cautious;
       const bool do_up = running && ys > cau;
       if (do_up) {
         head = (head + kMem - 1) % kMem;
-        for (int i = 0; i < L; ++i) {
-          lm_s[head][i] = s[i];
-          lm_y[head][i] = y[i];
+        for (int c = 0; c < V; ++c) {
+          M.s[head * DP + tm.coord(c)] = s[c];
+          M.y[head * DP + tm.coord(c)] = y[c];
         }
-        lm_ys[head] = ys;
+        M.ys[head] = ys;
         bound = bound + 1 < kMem ? bound + 1 : kMem;
         // two-loop recursion, newest entry first
-        for (int i = 0; i < L; ++i) d[i] = -gt[i];
+        T hv[V];
+        for (int c = 0; c < V; ++c) d[c] = -gt[c];
         for (int j = 0; j < bound; ++j) {
           const int h = (head + j) % kMem;
-          const T a = gdot<T, L>(lm_s[h], d, grp) / lm_ys[h];
-          for (int i = 0; i < L; ++i) d[i] = d[i] - a * lm_y[h][i];
-          alpha[j] = a;
+          for (int c = 0; c < V; ++c) hv[c] = M.s[h * DP + tm.coord(c)];
+          const T a = tdot(tm, hv, d) / M.ys[h];
+          for (int c = 0; c < V; ++c)
+            d[c] = d[c] - a * M.y[h * DP + tm.coord(c)];
+          M.alpha[j] = a;
         }
         const T scale = ys / m_max(yy, T(1e-30));
-        for (int i = 0; i < L; ++i) d[i] = d[i] * scale;
+        for (int c = 0; c < V; ++c) d[c] = d[c] * scale;
         for (int j = bound - 1; j >= 0; --j) {
           const int h = (head + j) % kMem;
-          const T b = gdot<T, L>(lm_y[h], d, grp) / lm_ys[h];
-          for (int i = 0; i < L; ++i) d[i] = d[i] + (alpha[j] - b) * lm_s[h][i];
+          for (int c = 0; c < V; ++c) hv[c] = M.y[h * DP + tm.coord(c)];
+          const T b = tdot(tm, hv, d) / M.ys[h];
+          for (int c = 0; c < V; ++c)
+            d[c] = d[c] + (M.alpha[j] - b) * M.s[h * DP + tm.coord(c)];
         }
       } else {
-        for (int i = 0; i < L; ++i) d[i] = -gt[i];
+        for (int c = 0; c < V; ++c) d[c] = -gt[c];
       }
       // next line-search setup
-      const T dginit = gdot<T, L>(gt, d, grp);
+      const T dginit = tdot(tm, gt, d);
       if (running && dginit > T(0)) status = ST_ERR_INCREASEGRADIENT;
       if (running && status == ST_RUNNING && k > p.max_iter)
         status = ST_MAXITER;
@@ -225,9 +234,9 @@ DFT_HD SolveOut lane_solve(const T* x0, T f0, const T* g0, const Slabs<T>& sl,
       nu = p.max_step;
       lscnt = 0;
       stp = p.adaptive ? m_min(m_max(stp * p.ad_mult, p.ad_lo), T(1)) : T(1);
-      for (int i = 0; i < L; ++i) {
-        xp[i] = xt[i];
-        gp[i] = gt[i];
+      for (int c = 0; c < V; ++c) {
+        xp[c] = xt[c];
+        gp[c] = gt[c];
       }
     } else {
       stp = stp_n;
@@ -237,7 +246,7 @@ DFT_HD SolveOut lane_solve(const T* x0, T f0, const T* g0, const Slabs<T>& sl,
     if (accept || ls_fail) fp = ft;
   }
 
-  for (int i = 0; i < DP; ++i) x_out[i] = grp.bcast(xp[i % L], i / L);
+  for (int c = 0; c < V; ++c) x_out[c] = xp[c];
   *f_out = fp;
   SolveOut out;
   out.status = status;

@@ -39,8 +39,8 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _lib = None
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc=CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -54,27 +54,30 @@ def _nvcc() -> str:
                        "CUDA toolkit")
 
 
-def library_path() -> pathlib.Path:
-    """Path of the shared library for the current sources (built or not)."""
+def library_path(csrc=CSRC) -> pathlib.Path:
+    """Path of the shared library for the sources in `csrc` (built or
+    not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdftpav_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
+def build(csrc=CSRC) -> pathlib.Path:
     """Compile csrc/*.cu (one nvcc per source, in parallel) and link them,
     unless the library for these sources exists. The compilers' register
-    and spill reports go to `<library>.log`."""
-    so = library_path()
+    and spill reports go to `<library>.log`. `csrc` is the package's own
+    unless a caller names another checkout's (chip_smoke.py --parent)."""
+    csrc = pathlib.Path(csrc)
+    so = library_path(csrc)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}"
-    srcs = sorted(CSRC.glob("*.cu"))
+    srcs = sorted(csrc.glob("*.cu"))
     objs = [so.with_name(f"{so.stem}.{s.stem}.{tag}.o") for s in srcs]
-    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(s)]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(o), str(s)]
             for s, o in zip(srcs, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -113,19 +116,26 @@ def library():
         raise RuntimeError("the CUDA kernels need a CUDA device; CPU tensors "
                            "take the plain PyTorch path")
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.dftpav_eval_fg.argtypes = [_P] * 11 + [_I] * 5 + [_P] * 3
-        lib.dftpav_eval_fg.restype = _I
-        lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 9 + [_P] * 4
-        lib.dftpav_solve_fused.restype = _I
-        lib.dftpav_corridor_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P] * 2
-        lib.dftpav_corridor_fwd.restype = _I
-        lib.dftpav_corridor_bwd.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 4
-        lib.dftpav_corridor_bwd.restype = _I
-        lib.dftpav_error_string.argtypes = [_I]
-        lib.dftpav_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
+
+
+def load(so):
+    """The kernel library at path `so`, its entry points typed."""
+    lib = ctypes.CDLL(str(so))
+    lib.dftpav_eval_fg.argtypes = [_P] * 11 + [_I] * 5 + [_P] * 3
+    lib.dftpav_eval_fg.restype = _I
+    lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 9 + [_P] * 6
+    lib.dftpav_solve_fused.restype = _I
+    lib.dftpav_corridor_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P] * 2
+    lib.dftpav_corridor_fwd.restype = _I
+    lib.dftpav_corridor_bwd.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 4
+    lib.dftpav_corridor_bwd.restype = _I
+    lib.dftpav_kernel_info.argtypes = [_I] * 4 + [_P]
+    lib.dftpav_kernel_info.restype = _I
+    lib.dftpav_error_string.argtypes = [_I]
+    lib.dftpav_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check(name, t, shape):
@@ -220,7 +230,13 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
                        dims, sigma: float, p, max_iter: int, flags):
     """Kernel B: the whole solve from (x0, f0, g0). Returns x [DP, B],
     f [B] and info [3, B] int32 (status, k clamped to max_iter, evals)."""
-    lib = library()
+    return solve_fused_with(library(), x0, f0, g0, sc, kc, sw, dims, sigma, p,
+                            max_iter, flags)
+
+
+def solve_fused_with(lib, x0, f0, g0, sc: KScenario, kc: KConsts,
+                     sw: StaticW, dims, sigma: float, p, max_iter: int, flags):
+    """launch_solve_fused through the kernel library `lib` (from `load`)."""
     B, R = _check_inputs(lib, x0, sc, kc, dims)
     _check("f0", f0, (B,))
     _check("g0", g0, tuple(x0.shape))
@@ -232,6 +248,11 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
     x = torch.empty_like(x0)
     f = torch.empty(B, dtype=torch.float32, device=x0.device)
     info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
+    # the persistent grid's lane counter, zeroed on the current stream, and
+    # the half-planes' lane-major copy the launch writes
+    queue = torch.zeros(1, dtype=torch.int32, device=x0.device)
+    planes = torch.empty(B * 5 * dims.H * R, dtype=torch.float32,
+                         device=x0.device)
     w = _floats(weight_vector(sw, sigma), lib.dftpav_weight_len())
     lp = _floats(lbfgs_vector(p, flags), lib.dftpav_lbfgs_len())
     rc = lib.dftpav_solve_fused(
@@ -242,9 +263,22 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
         ctypes.addressof(lp), int(max_iter), int(p.max_linesearch),
         int(p.past), int(bool(flags.adaptive_step)), B, R, dims.H, dims.O,
         dims.Po, x.data_ptr(), f.data_ptr(), info.data_ptr(),
-        _stream())
+        queue.data_ptr(), planes.data_ptr(), _stream())
     _raise_on(lib, rc, "dftpav_solve_fused")
     return x, f, info
+
+
+def kernel_info(dims, which: str) -> dict:
+    """Registers, local memory, resident warps per SM, persistent-grid
+    blocks and shared memory of kernel "A" or "B" on this card, for the
+    class `dims` (the occupancy API; nothing is launched)."""
+    lib = library()
+    out = (ctypes.c_int * 5)()
+    rc = lib.dftpav_kernel_info("AB".index(which), r_rows(dims), dims.O,
+                                dims.Po, out)
+    _raise_on(lib, rc, "dftpav_kernel_info")
+    return dict(zip(("registers", "local_bytes", "resident_warps_per_sm",
+                     "blocks", "smem_bytes"), list(out)))
 
 
 def _check_penalty(lib, sig, dsig, wq, corr_n, corr_p, corr_mask, le):

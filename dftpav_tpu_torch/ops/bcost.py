@@ -12,7 +12,7 @@ engines' `_finalize`.
 The static-corridor term has three backends (OptConfig.corridor_backend):
 the plain broadcast form ("xla"), or the CorridorPenalty function of
 ops/pallas_penalty.py, whose forward and backward are CUDA kernels for
-CUDA tensors ("pallas"; "auto" picks it for CUDA tensors).
+CUDA tensors ("pallas"; "auto", the default, picks it for CUDA tensors).
 
 Two-component contractions are written out (x0*y0 + x1*y1) rather than as a
 product followed by a sum over the component axis: the value is the same,

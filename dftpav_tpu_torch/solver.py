@@ -12,7 +12,7 @@ Engines (same per-lane algorithm):
   "bminor": the batch-minor engine (ops/bcost objective by autograd,
       ops/blbfgs lockstep L-BFGS) on any device, any S with uniform N; its
       corridor term launches the K2/K3 kernels for CUDA tensors when
-      OptConfig.corridor_backend is "pallas" or "auto".
+      OptConfig.corridor_backend is "auto" (the default) or "pallas".
 """
 
 from __future__ import annotations

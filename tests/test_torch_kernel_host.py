@@ -11,9 +11,17 @@ and runs them lane by lane:
   * float32 objective and gradient vs float64 autograd: per lane
     |df|/|f| <= 1e-4 and max|dg| <= 1e-3 * max(1, max|g|) (the tolerance
     the card is held to: float32 with another summation order over 166 rows
-    and the alpha=100 log-sum-exp);
+    and the alpha=100 log-sum-exp); at 8 obstacles, on a colliding lane
+    where plain float32 itself loses digits, the gradient no further from
+    float64 than max(1e-3, 4x plain float32's distance);
   * float64 round loop vs the plain round loop, 12 iterations: statuses, k,
     eval counts exact, fp rtol 1e-10, xp rtol 1e-9 / atol 1e-10.
+
+Each runs the per-lane code as a team (csrc/team.cuh) of one member (the
+Solo path) or of 32 members run in turn, the card's one warp per lane:
+rows split over the members, near (row, obstacle) pairs packed by the
+ballot into batches of 32, partials reduce-scattered. A fixture whose
+obstacles sit on the lanes' paths fills those batches.
 
 Skips where g++ is absent. The harness is a test tool only; the package
 never builds or loads it.
@@ -41,9 +49,44 @@ torch.set_num_threads(1)
 DIMS = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
 
 HARNESS = r"""
+#include <vector>
 #include "kcost.cuh"
 #include "solve.cuh"
 using namespace dftpav;
+constexpr int kN = 8;
+typedef KDims<kN> Dm;
+
+// One lane's scratch, as a warp's slice of shared memory holds it on the
+// card, and the class constants (the sample maps also in double).
+template <class T, int G>
+struct Lane {
+  std::vector<double> Pd;
+  std::vector<T> bnd, obs;
+  std::vector<ObsLane<T>> ol;
+  std::vector<NearPair<T>> ring;
+  T x[Dm::DP], g[Dm::DP], qr[2 * Dm::C], acc[kAcc * G];
+  double rhs[2 * Dm::C];
+  T hs[kMem * Dm::DP], hy[kMem * Dm::DP], ys[kMem], alpha[kMem],
+      pf[kMaxPast];
+  LaneData<T> L;
+  SolverMem<T> M;
+  Lane(const T* P, const T* Q, const T* gridc, int R, int H, int O, int Po)
+      : Pd(3 * R * Dm::C), bnd(12), obs(12 * O * Po + 1), ol(O + 1),
+        ring(2 * G) {
+    for (size_t i = 0; i < Pd.size(); ++i) Pd[i] = double(P[i]);
+    L.Pd = Pd.data(); L.P = P; L.Q = Q; L.gridc = gridc;
+    L.R = R; L.H = H; L.O = O; L.Po = Po;
+    L.bnd = bnd.data(); L.obs = obs.data(); L.ol = ol.data();
+    L.x = x; L.g = g; L.rhs = rhs; L.qr = qr; L.ring = ring.data();
+    L.acc = acc;
+    M.s = hs; M.y = hy; M.ys = ys; M.alpha = alpha; M.pf = pf;
+  }
+  void stage(const Slabs<T>& s, int lane) {
+    stage_lane(HostTeam<G, Dm::DP>(), s, lane, bnd.data(), obs.data(),
+               ol.data());
+    L.sgl = s.misc[lane];
+  }
+};
 
 template <class T>
 static Slabs<T> slabs(const T* bnd, const T* misc, const T* cn, const T* cp,
@@ -55,23 +98,27 @@ static Slabs<T> slabs(const T* bnd, const T* misc, const T* cn, const T* cp,
   return s;
 }
 
-template <class T>
+// kernel A's mapping: half-planes read from the slabs
+template <class T, int G>
 static void eval_all(const T* x, const T* bnd, const T* misc, const T* cn,
                      const T* cp, const T* cm, const T* obs, const T* P,
                      const T* Q, const T* gridc, const double* wts, int B,
                      int R, int H, int O, int Po, T* f, T* g) {
   const KW<T> w = make_kw<T>(wts);
   const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po);
-  const int DP = KDims<8>::DP;
+  Lane<T, G> ln(P, Q, gridc, R, H, O, Po);
   for (int lane = 0; lane < B; ++lane) {
-    T xl[KDims<8>::DP], gl[KDims<8>::DP];
-    for (int i = 0; i < DP; ++i) xl[i] = x[i * B + lane];
-    f[lane] = lane_fg<T, 8>(xl, gl, s, lane, P, Q, gridc, w);
-    for (int i = 0; i < DP; ++i) g[i * B + lane] = gl[i];
+    ln.stage(s, lane);
+    ln.L.planes = planes_slab(s, lane);
+    ln.L.plane_row = (size_t)B;
+    for (int i = 0; i < Dm::DP; ++i) ln.x[i] = x[i * B + lane];
+    f[lane] = lane_eval<T, kN>(HostTeam<G, Dm::DP>(), ln.L, w);
+    for (int i = 0; i < Dm::DP; ++i) g[i * B + lane] = ln.g[i];
   }
 }
 
-template <class T>
+// kernel B's mapping: half-planes read from the lane-major copy
+template <class T, int G>
 static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
                       const T* misc, const T* cn, const T* cp, const T* cm,
                       const T* obs, const T* P, const T* Q, const T* gridc,
@@ -81,42 +128,54 @@ static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
   const KW<T> w = make_kw<T>(wts);
   const LP<T> p = make_lp<T>(lbp, max_iter, max_ls, past, adaptive);
   const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po);
-  const int DP = KDims<8>::DP;
+  std::vector<T> copy((size_t)B * 5 * H * R + 1);
+  for (int b = 0; b < B; ++b)
+    for (int q = 0; q < 5 * H; ++q)
+      for (int r = 0; r < R; ++r)
+        copy[((size_t)b * 5 * H + q) * R + r] =
+            lane_major_src(s, q)[(size_t)r * B + b];
+  Lane<T, G> ln(P, Q, gridc, R, H, O, Po);
   for (int lane = 0; lane < B; ++lane) {
-    T xl[KDims<8>::DP], gl[KDims<8>::DP], xo[KDims<8>::DP];
-    for (int i = 0; i < DP; ++i) {
+    ln.stage(s, lane);
+    ln.L.planes = planes_lane_major(copy.data(), lane, H, R);
+    ln.L.plane_row = 1;
+    T xl[Dm::DP], gl[Dm::DP], xo[Dm::DP];
+    for (int i = 0; i < Dm::DP; ++i) {
       xl[i] = x0[i * B + lane];
       gl[i] = g0[i * B + lane];
     }
-    const SolveOut o = lane_solve<T, 8>(xl, f0[lane], gl, s, lane, P, Q,
-                                        gridc, w, p, xo, &f_out[lane]);
-    for (int i = 0; i < DP; ++i) x_out[i * B + lane] = xo[i];
+    const SolveOut o = lane_solve<T, kN>(HostTeam<G, Dm::DP>(), ln.L, w, p,
+                                         ln.M, xl, f0[lane], gl, xo,
+                                         &f_out[lane]);
+    for (int i = 0; i < Dm::DP; ++i) x_out[i * B + lane] = xo[i];
     info[lane] = o.status;
     info[B + lane] = o.k;
     info[2 * B + lane] = o.n_evals;
   }
 }
 
-#define DEF(T, SUF)                                                        \
-  extern "C" void eval_##SUF(const T* x, const T* bnd, const T* misc,      \
-      const T* cn, const T* cp, const T* cm, const T* obs, const T* P,     \
-      const T* Q, const T* gridc, const double* wts, int B, int R, int H,  \
-      int O, int Po, T* f, T* g) {                                          \
-    eval_all<T>(x, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, B, R, H,  \
-                O, Po, f, g);                                              \
+#define DEF(T, SUF, G)                                                     \
+  extern "C" void eval_##SUF##_g##G(const T* x, const T* bnd,              \
+      const T* misc, const T* cn, const T* cp, const T* cm, const T* obs,  \
+      const T* P, const T* Q, const T* gridc, const double* wts, int B,    \
+      int R, int H, int O, int Po, T* f, T* g) {                            \
+    eval_all<T, G>(x, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, B, R,  \
+                   H, O, Po, f, g);                                        \
   }                                                                        \
-  extern "C" void solve_##SUF(const T* x0, const T* f0, const T* g0,       \
-      const T* bnd, const T* misc, const T* cn, const T* cp, const T* cm,  \
-      const T* obs, const T* P, const T* Q, const T* gridc,                \
+  extern "C" void solve_##SUF##_g##G(const T* x0, const T* f0,            \
+      const T* g0, const T* bnd, const T* misc, const T* cn, const T* cp,  \
+      const T* cm, const T* obs, const T* P, const T* Q, const T* gridc,   \
       const double* wts, const double* lbp, int max_iter, int max_ls,      \
       int past, int adaptive, int B, int R, int H, int O, int Po,          \
       T* x_out, T* f_out, int* info) {                                      \
-    solve_all<T>(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, \
-                 lbp, max_iter, max_ls, past, adaptive, B, R, H, O, Po,    \
-                 x_out, f_out, info);                                      \
+    solve_all<T, G>(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q, gridc,   \
+                    wts, lbp, max_iter, max_ls, past, adaptive, B, R, H, O,\
+                    Po, x_out, f_out, info);                               \
   }
-DEF(double, f64)
-DEF(float, f32)
+DEF(double, f64, 1)
+DEF(float, f32, 1)
+DEF(double, f64, 32)
+DEF(float, f32, 32)
 """
 
 
@@ -140,6 +199,9 @@ def _harness():
                        check=True, capture_output=True, text=True)
         tmp.replace(so)
     return ctypes.CDLL(str(so))
+
+
+_SUF = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def _ptr(t):
@@ -171,18 +233,20 @@ def _setup(B=16, seed=3, sigma=1.0):
     return cfg, sw, sc, kc, x0p, x, D
 
 
-def _host_eval(x, sc, kc, sw, sigma, dtype):
+def _host_eval(x, sc, kc, sw, sigma, dtype, G=1, dims=DIMS):
+    """The objective with kernel A's team mapping, G members per lane
+    (1: the Solo path; 32: the card's warp, its members run in turn)."""
     lib = _harness()
-    fn = lib.eval_f64 if dtype == torch.float64 else lib.eval_f32
+    fn = getattr(lib, f"eval_{_SUF[dtype]}_g{G}")
     c = lambda t: t.to(dtype).contiguous()
     xs, scs = c(x), [c(a) for a in sc]
-    P, Q, G = c(kc.P), c(kc.Q[0, :DIMS.N + 5]), c(kc.gridc)
+    P, Q, G = c(kc.P), c(kc.Q[0, :dims.N + 5]), c(kc.gridc)
     B = x.shape[1]
     f = torch.empty(B, dtype=dtype)
     g = torch.empty_like(xs)
     w = _doubles(_cuda.weight_vector(sw, sigma))
     fn(_ptr(xs), *(_ptr(a) for a in scs), _ptr(P), _ptr(Q), _ptr(G), w, B,
-       kcost.r_rows(DIMS), DIMS.H, DIMS.O, DIMS.Po, _ptr(f), _ptr(g))
+       kcost.r_rows(dims), dims.H, dims.O, dims.Po, _ptr(f), _ptr(g))
     return f, g
 
 
@@ -210,9 +274,12 @@ def test_hand_gradient_f32_within_card_tolerance():
     assert bool((dg <= 1e-3 * gmax).all()), (dg / gmax)
 
 
-def _host_solve(x0, f0, g0, sc, kc, sw, sigma, p, max_iter, flags, dtype):
+def _host_solve(x0, f0, g0, sc, kc, sw, sigma, p, max_iter, flags, dtype,
+                G=1):
+    """Kernel B's per-lane solve with G members per lane (as _host_eval),
+    reading the half-planes from the lane-major copy kernel B makes."""
     lib = _harness()
-    fn = lib.solve_f64 if dtype == torch.float64 else lib.solve_f32
+    fn = getattr(lib, f"solve_{_SUF[dtype]}_g{G}")
     c = lambda t: t.to(dtype).contiguous()
     B = x0.shape[1]
     xs, fs, gs = c(x0), c(f0), c(g0)
@@ -263,3 +330,128 @@ def test_host_solve_f32_converges_like_round_loop():
     assert bool((info[0] >= 0).all()), info[0]
     med, med_ref = float(f.double().median()), float(ref.fp.median())
     assert abs(med - med_ref) <= 0.02 * abs(med_ref), (med, med_ref)
+
+
+@functools.lru_cache(maxsize=None)
+def _near_setup():
+    """The B=16 fixture with both obstacles of every lane moved onto its
+    path (one at the start, one halfway, drifting at 0.3 m per piece), so
+    that many sample rows are within reach and run the dual-number pass."""
+    cfg, sw, sc, kc, x0p, x, D = _setup()
+    obs, misc = sc.obs_c.clone(), sc.misc.clone()
+    head, tail = sc.bnd[0:2], sc.bnd[6:8]
+    obs.zero_()
+    for o, pos in ((0, head), (1, 0.5 * (head + tail))):
+        for piece in range(DIMS.Po):
+            obs[o, :, 6 * piece] = pos
+            obs[o, 0, 6 * piece + 1] = 0.3
+        misc[2 + 2 * DIMS.O + o] = 1.0
+    return cfg, sw, sc._replace(obs_c=obs, misc=misc), kc, x0p, x, D
+
+
+def _case(name, sigma=1.0):
+    return _near_setup() if name == "near" else _setup(sigma=sigma)
+
+
+@pytest.mark.parametrize("case", ["bench", "near"])
+def test_team_eval_f64_matches_autograd_and_solo(case):
+    """32 members per lane, run in turn: autograd's value and gradient
+    (f rtol 1e-11, g 1e-9), and the Solo path's to rounding."""
+    cfg, sw, sc, kc, x0p, x, D = _case(case)
+    f_ref, g_ref = kcost.eval_fg(x, sc, kc, sw, DIMS)
+    f, g = _host_eval(x, sc, kc, sw, 1.0, torch.float64, G=32)
+    np.testing.assert_allclose(f.numpy(), f_ref.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=1e-9,
+                               atol=1e-9)
+    assert not torch.any(g[D:])
+    f1, g1 = _host_eval(x, sc, kc, sw, 1.0, torch.float64, G=1)
+    np.testing.assert_allclose(f.numpy(), f1.numpy(), rtol=1e-13)
+    np.testing.assert_allclose(g.numpy(), g1.numpy(), rtol=1e-11,
+                               atol=1e-11)
+
+
+def test_near_fixture_runs_the_obstacle_block():
+    """The near fixture's obstacle term is large on most lanes (it is
+    computed only by the dual-number pass over packed pairs), and the
+    plain objective agrees that it is."""
+    cfg, sw, sc, kc, x0p, x, D = _near_setup()
+    masked = sc.misc.clone()
+    masked[2 + 2 * DIMS.O:2 + 3 * DIMS.O] = 0.0
+    f, _g = _host_eval(x, sc, kc, sw, 1.0, torch.float64, G=32)
+    f0, _g0 = _host_eval(x, sc._replace(misc=masked), kc, sw, 1.0,
+                         torch.float64, G=32)
+    f_ref = kcost.eval_fg(x, sc._replace(misc=masked), kc, sw, DIMS)[0]
+    np.testing.assert_allclose(f0.numpy(), f_ref.numpy(), rtol=1e-11)
+    assert int(((f - f0) > 1e-3 * f0.abs()).sum()) >= 3 * x.shape[1] // 4
+
+
+@pytest.mark.parametrize("case", ["bench", "near"])
+def test_team_eval_f32_within_card_tolerance(case):
+    cfg, sw, sc, kc, x0p, x, D = _case(case)
+    f_ref, g_ref = kcost.eval_fg(x, sc, kc, sw, DIMS)
+    f, g = _host_eval(x, sc, kc, sw, 1.0, torch.float32, G=32)
+    rel = (f.double() - f_ref).abs() / f_ref.abs()
+    assert float(rel.max()) <= 1e-4, rel
+    gmax = g_ref.abs().amax(dim=0).clamp(min=1.0)
+    dg = (g.double() - g_ref).abs().amax(dim=0)
+    assert bool((dg <= 1e-3 * gmax).all()), (dg / gmax)
+
+
+@pytest.mark.parametrize("case", ["bench", "near"])
+def test_team_solve_f64_matches_round_loop_12_iterations(case):
+    """Kernel B's mapping (32 members, the lane-major half-planes), tuned
+    flags: the plain round loop's 12-iteration path exactly."""
+    flags = EngineFlags.tuned()
+    cfg, sw, sc, kc, x0p, _x, D = _near_setup() if case == "near" \
+        else _setup(sigma=0.25)
+    p = cfg.opt.lbfgs
+    ref = pallas_solve._solve_rounds(x0p, sc, kc, sw, DIMS, p, 12, flags)
+    f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, DIMS, flags)
+    x, f, info = _host_solve(x0p, f0, g0, sc, kc, sw, 0.25, p, 12, flags,
+                             torch.float64, G=32)
+    np.testing.assert_array_equal(info[0].numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(info[1].numpy(),
+                                  ref.k.clamp(max=12).numpy())
+    np.testing.assert_array_equal(info[2].numpy(), ref.n_evals.numpy())
+    np.testing.assert_allclose(f.numpy(), ref.fp.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(x.numpy(), ref.xp.numpy(), rtol=1e-9,
+                               atol=1e-10)
+
+
+def test_team_eval_8_obstacles_f32_as_close_as_float32_allows():
+    """A class with 8 obstacles (on the card: fewer warps per block), at
+    x0 of the last 64 lanes of the seed-11 fixture, one of them deep in a
+    collision: the 32-member mapping in float64 equals plain float64, and
+    in float32 its gradient is no further from float64 than max(1e-3, 4x
+    plain float32's own distance), the gate chip_smoke.py holds kernel A
+    to outside phase 2. Plain float32 itself is ~5e-4 off on that lane."""
+    dims8 = dataclasses.replace(DIMS, O=8)
+    cfg = PlannerConfig()
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
+    sw = kcost.StaticW.build(w, cfg)
+    npb = scenarios.batch_scenarios(dims8, 2048, seed=11, dtype=np.float32,
+                                    n_obstacles=8)
+    batch = from_numpy(Scenario(*(a[-64:] for a in npb)), Scenario,
+                       device="cpu", dtype=torch.float32)
+    _b, x0, sc, kc, D = pallas_solve._prep(batch, w, dims8, torch.float32,
+                                           0.25)
+    sc64 = kcost.KScenario(*(a.double() for a in sc))
+    kc64 = kcost.KConsts(*(a.double() for a in kc))
+    tuned = EngineFlags.tuned()                # sigma 0.25, as below
+    f64, g64 = kcost.eval_fg_plain(x0.double(), sc64, kc64, sw, dims8, tuned)
+    fh, gh = _host_eval(x0.double(), sc64, kc64, sw, 0.25, torch.float64,
+                        G=32, dims=dims8)
+    np.testing.assert_allclose(fh.numpy(), f64.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(gh.numpy(), g64.numpy(), rtol=1e-9,
+                               atol=1e-9)
+    f32, g32 = _host_eval(x0, sc, kc, sw, 0.25, torch.float32, G=32,
+                          dims=dims8)
+    fp, gp = kcost.eval_fg_plain(x0, sc, kc, sw, dims8, tuned)
+    gmax = g64.abs().amax(dim=0).clamp(min=1.0)
+
+    def rel_g(g):
+        return float(((g.double() - g64).abs().amax(dim=0) / gmax).max())
+
+    assert float(((f32.double() - f64).abs() / f64.abs()).max()) <= 1e-4
+    assert rel_g(gp) > 1e-4                  # the lane float32 cannot hold
+    assert rel_g(g32) <= max(1e-3, 4.0 * rel_g(gp)), (rel_g(g32), rel_g(gp))
