@@ -56,12 +56,39 @@ non-zero and prints no final result):
      on the B=8192 operands;
   6. the second path, solver.make_solver(engine="bminor") with the
      default corridor backend ("auto", which must reach K2/K3 on its own)
-     on the B=8192 fixture, 150 iterations (a 5-iteration warm-up at
+     on the first 2048 lanes of the fixture, 150 iterations (a 5-iteration warm-up at
      B=256, then one run timed with CUDA events), beside the same call
      with "xla" (no kernel on that path) on the first 1024 lanes; gates
      success >= 0.99, cost p50 of those lanes within 2% of the "xla"
      run's, both corridor kernels launched, finite coefficients of shape
      (B, 1, 8, 6, 2).
+  7. the multigear path (the JAX bench's multigear line, bench.py:310-388):
+     a pool of two-gear plans from the port's native front end on random
+     parking-lot grids (scenarios.frontend_pool_multigear over the nine
+     S=2 piece classes, 800 plans, seed 11, 2 obstacles; planned in a
+     child process while phases 1-6 run), each benched class with >= 8
+     plans tiled to B=256 and solved by make_solver(engine="fused") (one
+     warm-up, best of 3) and by solver.solve_with_retry (10 time scales,
+     timed once); per class rate, direct and ladder success, cost p50,
+     share, iterations and resident warps per SM; the pool's plans per
+     class must be MG_COUNTS (each A* search has 1 s of CPU time, ten
+     times the bench's budget, which none of this pool's reaches, so that
+     the pool does not depend on the host); gates per class against the
+     plain versions in
+     float64 (plain float32 loses whole digits at the lots' ~50 m
+     coordinates): kernel A per lane |df|/|f| <= 1e-4 and max|dg| <= 1e-3
+     * max(1, max|g|); kernel B against the plain round loop (run from x0
+     and from three copies of x0 perturbed by 1e-7, in 7 processes at once
+     after the timed runs): success within 0.02 and cost p50 within 2%
+     beyond the float64 loop's own largest move under those perturbations
+     (the lanes' outcomes are chaotic: a few plans changing minimum move a
+     median of 40-128 plans by percents), 12-iteration paths equal on
+     >= 50% of the lanes; both kernels launched, finite coefficients
+     starting at ini_state[0] and ending at fin_state[S-1] to 1e-3 m;
+     aggregated as the bench does (rate, ladder and direct success over
+     the covered share), ladder success >= 0.99; then the S=3 class
+     (4, 2, 2) on multi_gear_scenario, B=256, under the same gates; ptxas
+     and machine instructions of every S instantiation.
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -98,10 +125,13 @@ import torch
 
 
 _PHASES = []
+_T0 = time.perf_counter()
 
 
 def _emit(phase, **kw):
-    _PHASES.append({"phase": phase, **kw})
+    """Print one phase's numbers as a JSON line (with the seconds since the
+    start) and keep them for --out."""
+    _PHASES.append({"phase": phase, "t_s": time.perf_counter() - _T0, **kw})
     print(json.dumps(_PHASES[-1]), flush=True)
 
 
@@ -222,9 +252,11 @@ def _rel_errs(f, g, f_ref, g_ref):
 def _other_kernel_b(csrc):
     """(library path, kernel B) built from the directory csrc, kernel B as
     a function with the arguments and return of _cuda.launch_solve_fused.
-    A build that exports dftpav_kernel_info has this package's C
-    interface; an older one (before the lane queue) has no queue and
-    planes arguments."""
+    A build that exports dftpav_kernel_max_s has this package's C
+    interface. An older one takes S = 1 only and the first
+    dftpav_weight_len() entries of the weight vector; of those, one that
+    exports dftpav_kernel_info also takes the lane queue and the planes'
+    lane-major copy."""
     import ctypes
     import pathlib
 
@@ -232,22 +264,31 @@ def _other_kernel_b(csrc):
 
     so = _cuda.build(pathlib.Path(csrc))
     raw = ctypes.CDLL(str(so))
-    if hasattr(raw, "dftpav_kernel_info"):
+    if hasattr(raw, "dftpav_kernel_max_s"):
         lib = _cuda.load(so)
         return so, lambda *a: _cuda.solve_fused_with(lib, *a)
+    queued = hasattr(raw, "dftpav_kernel_info")
     P, I = ctypes.c_void_p, ctypes.c_int
-    raw.dftpav_solve_fused.argtypes = [P] * 14 + [I] * 9 + [P] * 4
+    raw.dftpav_solve_fused.argtypes = \
+        [P] * 14 + [I] * 9 + [P] * (6 if queued else 4)
     raw.dftpav_solve_fused.restype = I
 
     def solve(x0, f0, g0, sc, kc, sw, dims, sigma, p, max_iter, flags):
+        if dims.S != 1:
+            raise NotImplementedError(f"{csrc}: a build for S = 1 only")
         B, R = x0.shape[1], kcost.r_rows(dims)
         Q = kc.Q[0, :dims.N + 5].contiguous()
         x, f = torch.empty_like(x0), torch.empty_like(f0)
         info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
-        w = _cuda._floats(_cuda.weight_vector(sw, sigma),
-                          raw.dftpav_weight_len())
+        n_w = raw.dftpav_weight_len()
+        w = _cuda._floats(_cuda.weight_vector(sw, sigma, dims)[:n_w], n_w)
         lp = _cuda._floats(_cuda.lbfgs_vector(p, flags),
                            raw.dftpav_lbfgs_len())
+        keep = []
+        if queued:
+            keep = [torch.zeros(1, dtype=torch.int32, device=x0.device),
+                    torch.empty(B * 5 * dims.H * R, dtype=torch.float32,
+                                device=x0.device)]
         rc = raw.dftpav_solve_fused(
             x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
             sc.misc.data_ptr(), sc.corr_n.data_ptr(), sc.corr_p.data_ptr(),
@@ -256,11 +297,110 @@ def _other_kernel_b(csrc):
             ctypes.addressof(lp), int(max_iter), int(p.max_linesearch),
             int(p.past), int(bool(flags.adaptive_step)), B, R, dims.H,
             dims.O, dims.Po, x.data_ptr(), f.data_ptr(), info.data_ptr(),
+            *(t.data_ptr() for t in keep),
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{csrc}: dftpav_solve_fused: CUDA error {rc}")
         return x, f, info
     return so, solve
+
+
+# the two-gear per-segment piece classes of the JAX package's bench
+# (bench.py:59-62): every quantized (n0, n1) pair the front end produces,
+# and the benched ones (>= 95% of two-gear plans); the retry ladder's time
+# scales (bench.py:352-353)
+MG_ALL = ((8, 2), (4, 2), (2, 8), (2, 2), (4, 8), (8, 8), (2, 4), (4, 4),
+          (8, 4))
+MG_BENCHED = ((8, 2), (4, 2), (2, 8), (2, 2), (4, 8), (8, 8), (2, 4))
+MG_SCALES = (1.6, 0.7, 2.5, 1.25, 0.45, 3.5, 2.0, 0.55, 5.0, 1.1)
+MG_POOL, MG_SEED, MG_B = 800, 11, 256
+# the A* search's budget per query, in CPU seconds: 1 s, ten times the
+# bench's 0.1 s, which one search of this pool (a (8, 2) plan past the
+# first 256) outruns, so that at 0.1 s the pool depends on the host's
+# speed; at 1 s and at 3 s it is the same. And that pool's plans per
+# class, checked
+MG_SEARCH_S = 1.0
+MG_COUNTS = {(8, 2): 384, (4, 2): 128, (2, 8): 117, (2, 2): 52, (4, 8): 28,
+             (8, 8): 31, (2, 4): 40, (4, 4): 7, (8, 4): 13}
+# kernel B against the plain round loop in float64, per class: success and
+# cost p50 within 0.02 and 2% beyond the float64 loop's own spread when its
+# x0 moves by 1e-7 (relative, seeded; MG_PERTURB runs), and 12-iteration
+# paths equal on at least MG_SHARE12 of the lanes (0.55-1.0 measured)
+MG_PERTURB, MG_SHARE12 = (1, 2, 3), 0.5
+
+
+def _mg_dims(ns):
+    from dftpav_tpu_torch.types import Dims
+
+    return Dims(S=len(ns), N=8, K=16, Kdes=32, H=4, O=2, Po=8, Ns=tuple(ns))
+
+
+def _mg_pool_worker(conn, n_plans, seed):
+    """Child process: the two-gear front-end pool (numpy), sent back as
+    (seconds, counts per class, stacked batches, n_s2) or the error."""
+    try:
+        from dftpav_tpu_torch import scenarios
+
+        t0 = time.perf_counter()
+        buckets, n_s2 = scenarios.frontend_pool_multigear(
+            [_mg_dims(ns) for ns in MG_ALL], n_plans, seed=seed,
+            dtype=np.float32, n_obstacles=2, max_search_time=MG_SEARCH_S)
+        conn.send((time.perf_counter() - t0,
+                   {ns: len(v) for ns, v in buckets.items()},
+                   {ns: scenarios.stack_scenarios(v)
+                    for ns, v in buckets.items() if v}, n_s2))
+    except BaseException as exc:         # reported by the parent
+        conn.send(exc)
+    finally:
+        conn.close()
+
+
+def _mg_plain_worker(ns, npb, seed, iters):
+    """Child process: the plain round loop in float64 on the card for one
+    class's lanes (numpy Scenario npb), prepared in float32 as the kernels
+    get them; seed None: from x0, for `iters` and for 12 iterations; else
+    from x0 * (1 + 1e-7 N(0, 1)) drawn with that seed, for `iters`.
+    Returns numpy (status, fp, k, n_evals) per run and the seconds of the
+    long one."""
+    from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
+    from dftpav_tpu_torch.ops import kcost, pallas_solve
+    from dftpav_tpu_torch.types import Scenario, from_numpy, \
+        weights_from_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dims = _mg_dims(ns)
+    cfg, tuned = PlannerConfig(), EngineFlags.tuned()
+    w = weights_from_config(cfg.opt, torch.float32)
+    sw = kcost.StaticW.build(w, cfg)
+    batch = from_numpy(npb, Scenario, dtype=torch.float32)
+    _b, x0, sc, kc, _D = pallas_solve._prep(batch, w, dims, torch.float32,
+                                            "auto")
+    x0 = x0.double()
+    sc = kcost.KScenario(*(a.double() for a in sc))
+    kc = kcost.KConsts(*(a.double() for a in kc))
+    if seed is not None:
+        noise = np.random.default_rng(seed).standard_normal(tuple(x0.shape))
+        x0 = x0 * (1.0 + 1e-7 * torch.from_numpy(noise).to(x0.device))
+    out = {}
+    for n in (iters,) if seed is not None else (iters, 12):
+        t0 = time.perf_counter()
+        r = pallas_solve._solve_rounds(x0, sc, kc, sw, dims, cfg.opt.lbfgs,
+                                       n, tuned)
+        torch.cuda.synchronize()
+        out[n] = {"status": r.status.cpu().numpy(), "fp": r.fp.cpu().numpy(),
+                  "k": r.k.clamp(max=n).cpu().numpy(),
+                  "n_evals": r.n_evals.cpu().numpy(),
+                  "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _tile_to(scens, B):
+    """Repeat / trim a stacked numpy Scenario to exactly B lanes
+    (bench.py:105-112)."""
+    n = scens.ini_state.shape[0]
+    reps = -(-B // n)
+    return type(scens)(*(np.concatenate([a] * reps)[:B] for a in scens))
 
 
 def main(argv=None) -> int:
@@ -275,13 +415,33 @@ def main(argv=None) -> int:
                          "beside the package's, on input variants, and "
                          "trace it with torch.profiler")
     args = ap.parse_args(argv)
-    B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
-    iters = 150
 
     # ---- 1. device and build ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
+    # the multigear pool is planned on the host by the native front end
+    # (minutes of one CPU core) in a child process while the card works
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    pool_rx, pool_tx = ctx.Pipe(duplex=False)
+    pool_proc = ctx.Process(target=_mg_pool_worker,
+                            args=(pool_tx, 64 if args.quick else MG_POOL,
+                                  MG_SEED), daemon=True)
+    pool_proc.start()
+    pool_tx.close()
+    try:
+        return _run(args, pool_rx, ctx)
+    finally:
+        if pool_proc.is_alive():
+            pool_proc.terminate()
+        pool_proc.join()
+
+
+def _run(args, pool_rx, ctx) -> int:
+    B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
+    iters = 150
     from dftpav_tpu_torch import scenarios, solver
     from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
     from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
@@ -331,7 +491,7 @@ def main(argv=None) -> int:
     # ---- 2. kernel A vs plain ----
     batch = fixture(B_chk)
     _b, x0p, sc, kc, D = pallas_solve._prep(batch, w, dims, torch.float32,
-                                            0.25)
+                                            "auto")
     x = x0p.clone()
     rng = np.random.default_rng(23)
     half = B_chk // 2
@@ -378,13 +538,15 @@ def main(argv=None) -> int:
             x.double(), kcost.KScenario(*(a.double() for a in sc_)),
             kcost.KConsts(*(a.double() for a in kc_)), sw, dims_, tuned)
         rel_f, rel_g = _rel_errs(f, g, *plain)
-        rel_g64 = _rel_errs(f.double(), g.double(), f64, g64)[1]
-        plain_g64 = _rel_errs(plain[0].double(), plain[1].double(), f64,
-                              g64)[1]
+        rel_f64, rel_g64 = _rel_errs(f.double(), g.double(), f64, g64)
+        plain_f64, plain_g64 = _rel_errs(plain[0].double(), plain[1].double(),
+                                         f64, g64)
         ok = rel_f <= 1e-4 and (rel_g <= 1e-3
                                 or rel_g64 <= max(1e-3, 4.0 * plain_g64))
         return {"rel_f_max_a": rel_f, "rel_g_max_a": rel_g,
+                "rel_f_max_a_vs_f64": rel_f64,
                 "rel_g_max_a_vs_f64": rel_g64,
+                "plain_f32_rel_f_max_vs_f64": plain_f64,
                 "plain_f32_rel_g_max_vs_f64": plain_g64}, ok
 
     def paths12(x0, f0, g0, sc_, kc_, dims_):
@@ -392,7 +554,7 @@ def main(argv=None) -> int:
         x0 (raw: the eval counts are not in SolveResult): the share of lanes
         whose (status, k, evals) agree and the largest |df| among them."""
         _x, fb, info = _cuda.launch_solve_fused(x0, f0, g0, sc_, kc_, sw,
-                                                dims_, 0.25, p, 12, tuned)
+                                                dims_, "auto", p, 12, tuned)
         raw = pallas_solve._solve_rounds(x0, sc_, kc_, sw, dims_, p, 12,
                                          tuned)
         same = ((info[0] == raw.status) & (info[1] == raw.k.clamp(max=12))
@@ -415,7 +577,7 @@ def main(argv=None) -> int:
             return t[..., -n:].contiguous()
         alone = _cuda.launch_solve_fused(
             cut(x0), cut(f0), cut(g0), kcost.KScenario(*map(cut, sc_)), kc_,
-            sw, dims_, 0.25, p, iters, tuned)
+            sw, dims_, "auto", p, iters, tuned)
         return all(torch.equal(cut(u), v) for u, v in zip(out, alone))
 
     res_k = pallas_solve.solve_batch_fused(batch, w, dims, cfg, iters,
@@ -453,12 +615,12 @@ def main(argv=None) -> int:
         dims8, 2048, seed=11, dtype=np.float32, n_obstacles=8), Scenario,
         device=dev, dtype=torch.float32)
     _b, x08, sc8, kc8, _D = pallas_solve._prep(b8, w, dims8, torch.float32,
-                                               0.25)
+                                               "auto")
     info8 = {k: _cuda.kernel_info(dims8, k) for k in "AB"}
-    f8, g8 = _cuda.launch_eval_fg(x08, sc8, kc8, sw, dims8, 0.25)
+    f8, g8 = _cuda.launch_eval_fg(x08, sc8, kc8, sw, dims8, "auto")
     errs8, ok_a8 = a_gate(f8, g8, x08, sc8, kc8, dims8, kcost.eval_fg_plain(
         x08, sc8, kc8, sw, dims8, tuned))
-    out8 = _cuda.launch_solve_fused(x08, f8, g8, sc8, kc8, sw, dims8, 0.25,
+    out8 = _cuda.launch_solve_fused(x08, f8, g8, sc8, kc8, sw, dims8, "auto",
                                     p, iters, tuned)
     alone8 = alone_equal(x08, f8, g8, sc8, kc8, dims8, out8)
     share8, err8 = paths12(x08, f8, g8, sc8, kc8, dims8)
@@ -489,11 +651,11 @@ def main(argv=None) -> int:
         bitwise equal, and its lanes taken second by a warp equal to the
         same lanes solved alone."""
         _b, x0b, scb, kcb, _D = pallas_solve._prep(b, w, dims, torch.float32,
-                                                   0.25)
-        f0b, g0b = _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25)
+                                                   "auto")
+        f0b, g0b = _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, "auto")
         Bb = b.init_T.shape[0]
         t = {"B": Bb, "ms_a": _cuda_ms(
-            lambda: _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, 0.25),
+            lambda: _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims, "auto"),
             reps=20)}
         keep = {}
 
@@ -509,7 +671,7 @@ def main(argv=None) -> int:
 
         def run_b():
             outs.append(_cuda.launch_solve_fused(
-                x0b, f0b, g0b, scb, kcb, sw, dims, 0.25, p, iters, tuned))
+                x0b, f0b, g0b, scb, kcb, sw, dims, "auto", p, iters, tuned))
 
         t["ms_b"] = _cuda_ms(run_b, reps=3)
         same = all(torch.equal(u, v) for o in outs[1:]
@@ -536,7 +698,8 @@ def main(argv=None) -> int:
         t["evals_per_lane_b_p50_p99_max"] = [
             _pct(evals_lane, 50), _pct(evals_lane, 99),
             float(evals_lane.max())]
-        for tag, name in (("a", "eval_fg_kernel"), ("b", "solve_kernel")):
+        for tag, name in (("a", "eval_fg_kernelILi1E"),
+                          ("b", "solve_kernelILi1E")):
             info = _cuda.kernel_info(dims, tag.upper())
             t[f"registers_{tag}"], t[f"spill_store_bytes_{tag}"] = \
                 regs_of(name)
@@ -627,7 +790,7 @@ def main(argv=None) -> int:
             npb = Scenario(*(np.repeat(a, 8, axis=0) for a in npb))
         _b, x0v, scv, kcv, _D = pallas_solve._prep(
             from_numpy(npb, Scenario, device=dev, dtype=torch.float32), w,
-            dims, torch.float32, 0.25)
+            dims, torch.float32, "auto")
         if variant == "no_corridor":
             return (dataclasses.replace(dims, H=0), x0v,
                     scv._replace(corr_n=scv.corr_n[:0], corr_p=scv.corr_p[:0],
@@ -647,16 +810,16 @@ def main(argv=None) -> int:
                  ("parent", other), ("package", _cuda.launch_solve_fused))
         for variant in ("base", "no_corridor", "no_obstacles", "replicated8"):
             dims_v, x0v, scv, kcv = variant_inputs(variant)
-            f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims_v, 0.25)
+            f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims_v, "auto")
             ms_a = _cuda_ms(lambda: _cuda.launch_eval_fg(
-                x0v, scv, kcv, sw, dims_v, 0.25), reps=20)
+                x0v, scv, kcv, sw, dims_v, "auto"), reps=20)
             runs = []
             for name, solve_b in turns:
                 keep = {}
 
                 def run():
                     keep["r"] = solve_b(x0v, f0v, g0v, scv, kcv, sw, dims_v,
-                                        0.25, p, iters, tuned)
+                                        "auto", p, iters, tuned)
 
                 ms = _cuda_ms(run, reps=2)
                 _x, f_v, info_v = keep["r"]
@@ -675,12 +838,12 @@ def main(argv=None) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         dims_v, x0v, scv, kcv = variant_inputs("base")
-        f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, 0.25)
+        f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, "auto")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, 0.25)
-            _cuda.launch_solve_fused(x0v, f0v, g0v, scv, kcv, sw, dims, 0.25,
+            _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims, "auto")
+            _cuda.launch_solve_fused(x0v, f0v, g0v, scv, kcv, sw, dims, "auto",
                                      p, iters, tuned)
             torch.cuda.synchronize()
         rows = [{"name": ev.key[:80], "count": ev.count, "device_ms": getattr(
@@ -850,6 +1013,11 @@ def main(argv=None) -> int:
 
     # ---- 6. the second path: the bminor engine, default corridor backend
     # ("auto": the kernels for CUDA tensors) ----
+    # at B=2048 (8192 before the multigear phase; the path is host bound,
+    # so its time is nearly independent of B, and the run needs the
+    # minutes for phase 7)
+    B_bm = min(B_main, 2048)
+    fix_bm = fixture(B_bm)
     solve_p = solver.make_solver(cfg, dims, iters, engine="bminor")
     solver.make_solver(cfg, dims, 5, engine="bminor")(fixture(256), w)
     torch.cuda.synchronize()
@@ -858,7 +1026,7 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     def run_p():
-        out["bm"] = solve_p(big, w)
+        out["bm"] = solve_p(fix_bm, w)
 
     wall_p = _cuda_ms(run_p, reps=1, warmup=0)
     launches_pen = {"corridor_fwd": pp.corridor_fwd.launches,
@@ -878,14 +1046,14 @@ def main(argv=None) -> int:
     s_bx = res_x.success.float().mean().item()
     c_bp, c_bx = res_p.cost.median().item(), res_x.cost.median().item()
     c_bp_chk = res_p.cost[:B_chk].median().item()
-    shapes_ok = (tuple(res_p.coeffs.shape) == (B_main, 1, 8, 6, 2)
+    shapes_ok = (tuple(res_p.coeffs.shape) == (B_bm, 1, 8, 6, 2)
                  and torch.isfinite(res_p.coeffs).all().item()
                  and torch.isfinite(res_p.cost).all().item())
     ok_bm = (s_bp >= 0.99 and abs(c_bp_chk - c_bx) <= 0.02 * abs(c_bx)
              and launches_pen["corridor_fwd"] > 0
              and launches_pen["corridor_bwd"] > 0 and shapes_ok)
-    _emit("bminor_path", B=B_main, iters=iters, wall_ms=wall_p,
-          solves_per_s=B_main / (wall_p / 1e3), success=s_bp, cost_p50=c_bp,
+    _emit("bminor_path", B=B_bm, iters=iters, wall_ms=wall_p,
+          solves_per_s=B_bm / (wall_p / 1e3), success=s_bp, cost_p50=c_bp,
           iters_p50_p90_p99=[_pct(res_p.n_iters.float(), q)
                              for q in (50, 90, 99)],
           launches=launches_pen,
@@ -905,12 +1073,267 @@ def main(argv=None) -> int:
     if not ok_bm:
         raise AssertionError("bminor path failed its gate")
 
+    # ---- 7. the multigear path: two-gear front-end plans bucketed by
+    # per-segment piece class (bench.py:310-388), and an S=3 class ----
+    got = pool_rx.recv()
+    if isinstance(got, BaseException):
+        raise got
+    pool_s, pool_counts, pool, n_s2 = got
+    # the full pool's plans per class are known (MG_COUNTS): a pool that
+    # differs is another workload
+    ok_pool = args.quick or pool_counts == MG_COUNTS
+    _emit("multigear_pool", n_plans=64 if args.quick else MG_POOL,
+          seed=MG_SEED, search_s=MG_SEARCH_S, seconds=pool_s, n_s2=n_s2,
+          counts={"-".join(map(str, ns)): c for ns, c in pool_counts.items()},
+          tol="plans per class as MG_COUNTS (the full pool)",
+          ok=bool(ok_pool))
+    if not ok_pool:
+        raise AssertionError("multigear pool: plans per class differ from "
+                             "MG_COUNTS")
+
+    # the classes: each benched one with >= 8 plans, tiled to MG_B lanes,
+    # and the S=3 class (4, 2, 2) on multi_gear_scenario with numpy-seeded
+    # jitter of +-0.3 m on its inner waypoints
+    mg_np = {ns: _tile_to(pool[ns], MG_B) for ns in MG_BENCHED
+             if ns in pool and pool[ns].ini_state.shape[0] >= 8}
+    if not mg_np:
+        raise AssertionError("multigear pool: no class with 8 plans")
+    dims3 = _mg_dims((4, 2, 2))
+    rng3 = np.random.default_rng(13)
+    lanes3 = []
+    for _ in range(MG_B):
+        sc3 = scenarios.multi_gear_scenario(dims3, dtype=np.float32)
+        inner3 = sc3.init_inner + rng3.uniform(
+            -0.3, 0.3, sc3.init_inner.shape).astype(np.float32)
+        inner3[sc3.init_inner == 0] = 0.0
+        lanes3.append(sc3._replace(init_inner=inner3))
+    mg_np[(4, 2, 2)] = scenarios.stack_scenarios(lanes3)
+
+    def mg_path(dims_m, batch_m):
+        """The class through make_solver(engine="fused") (one warm-up, best
+        of 3) and solve_with_retry (timed once), the kernels' launches
+        counted over both, and the output gate: finite coefficients of
+        shape (B, S, 8, 6, 2) starting at ini_state[0] and ending at
+        fin_state[S-1] to 1e-3 m. (numbers, ok)"""
+        solve_m = solver.make_solver(cfg, dims_m, max_iterations=iters,
+                                     engine="fused", flags=tuned)
+        solve_m(batch_m, w)                              # warm-up
+        torch.cuda.synchronize()
+        kcost.eval_fg.launches = 0
+        pallas_solve.solve_batch_fused.launches = 0
+        res = {}
+        ms = _cuda_ms(lambda: res.__setitem__("d", solve_m(batch_m, w)),
+                      reps=3, warmup=0)
+        ms_r = _cuda_ms(lambda: res.__setitem__("r", solver.solve_with_retry(
+            solve_m, batch_m, w, time_scales=MG_SCALES, pad_to=MG_B)),
+            reps=1, warmup=0)
+        launches_m = (kcost.eval_fg.launches,
+                      pallas_solve.solve_batch_fused.launches)
+        d, r = res["d"], res["r"]
+        Bm, S_m = batch_m.init_T.shape
+        c = r.coeffs
+        head_err = (c[:, 0, 0, 0] - batch_m.ini_state[:, 0, :, 0]).abs().max()
+        tail_err = (c[:, -1, -1].sum(dim=1)
+                    - batch_m.fin_state[:, -1, :, 0]).abs().max()
+        ok = (tuple(c.shape) == (Bm, S_m, 8, 6, 2)
+              and bool(torch.isfinite(c).all())
+              and bool(torch.isfinite(d.coeffs).all())
+              and max(head_err.item(), tail_err.item()) <= 1e-3
+              and launches_m[0] > 0 and launches_m[1] > 0)
+        t = {"ms_direct": ms, "rate_direct": Bm / (ms / 1e3),
+             "ms_ladder": ms_r, "rate_ladder": Bm / (ms_r / 1e3),
+             "succ_direct": d.success.float().mean().item(),
+             "succ": r.success.float().mean().item(),
+             "cost_p50": float(np.nanmedian(r.cost.cpu().numpy())),
+             "cost_p50_direct": d.cost.median().item(),
+             "iters_p50_p90_p99": [_pct(d.n_iters.float(), q)
+                                   for q in (50, 90, 99)],
+             "boundary_err_m": [head_err.item(), tail_err.item()],
+             "launches": {"eval_fg": launches_m[0],
+                          "solve_fused": launches_m[1]}}
+        return t, ok
+
+    def mg_kernel_times(dims_m, batch_m):
+        """Kernels A and B alone at the class's x0 (CUDA events), kernel A
+        against the plain objective in float64 (per lane |df|/|f| <= 1e-4,
+        max|dg| <= 1e-3 * max(1, max|g|); plain float32 loses whole digits
+        at the lots' ~50 m coordinates, so it is timed but not compared),
+        the bounds, occupancy, and kernel B's outputs at 150 and 12
+        iterations. (numbers, outputs, ok)"""
+        _b, x0m, scm, kcm, _D = pallas_solve._prep(batch_m, w, dims_m,
+                                                   torch.float32, "auto")
+        fA, gA = _cuda.launch_eval_fg(x0m, scm, kcm, sw, dims_m, "auto")
+        keep = {}
+
+        def plain_a():
+            keep["a"] = kcost.eval_fg_plain(x0m, scm, kcm, sw, dims_m, tuned)
+
+        def run_b():
+            keep["k"] = _cuda.launch_solve_fused(x0m, fA, gA, scm, kcm, sw,
+                                                 dims_m, "auto", p, iters,
+                                                 tuned)
+
+        t = {"ms_a": _cuda_ms(lambda: _cuda.launch_eval_fg(
+            x0m, scm, kcm, sw, dims_m, "auto"), reps=20),
+             "plain_ms_a": _cuda_ms(plain_a, reps=3),
+             "ms_b": _cuda_ms(run_b, reps=3)}
+        f64, g64 = kcost.eval_fg_plain(
+            x0m.double(), kcost.KScenario(*(a.double() for a in scm)),
+            kcost.KConsts(*(a.double() for a in kcm)), sw, dims_m, tuned)
+        rel_f64, rel_g64 = _rel_errs(fA.double(), gA.double(), f64, g64)
+        errs = {"rel_f_max_a_vs_f64": rel_f64, "rel_g_max_a_vs_f64": rel_g64}
+        ok_a = rel_f64 <= 1e-4 and rel_g64 <= 1e-3
+        xb, fb, infob = keep["k"]
+        k12 = _cuda.launch_solve_fused(x0m, fA, gA, scm, kcm, sw, dims_m,
+                                       "auto", p, 12, tuned)[2]
+        Bm = x0m.shape[1]
+        rows = int((kcm.gridc[:, 0] > 0).sum())     # all segments' rows
+        ins = _nbytes(x0m, *scm, kcm.P, kcm.Q[:, :dims_m.N + 5], kcm.gridc)
+        t["bound_ms_a"], t["bound_by_a"] = _bound(
+            ins + _nbytes(fA, gA),
+            Bm * (rows * FLOP_ROW_A + dims_m.S * FLOP_LANE_A),
+            Bm * rows * FLOP64_ROW_A)
+        ev = infob[2].float() - 1.0
+        evals = int(ev.sum())
+        t["bound_ms_b"], t["bound_by_b"] = _bound(
+            ins + _nbytes(fA, gA, xb, fb, infob),
+            evals * (rows * FLOP_ROW_A + dims_m.S * FLOP_LANE_A)
+            + int(infob[1].sum()) * FLOP_ITER_B, evals * rows * FLOP64_ROW_A)
+        t.update(errs)
+        t.update(max_abs_err_a=max((fA.double() - f64).abs().max().item(),
+                                   (gA.double() - g64).abs().max().item()),
+                 lane_evals_b=evals,
+                 evals_per_lane_b_p50_p99_max=[_pct(ev, 50), _pct(ev, 99),
+                                               float(ev.max())])
+        for k in "AB":
+            info = _cuda.kernel_info(dims_m, k)
+            t[f"resident_warps_per_sm_{k.lower()}"] = \
+                info["resident_warps_per_sm"]
+            t[f"smem_bytes_{k.lower()}"] = info["smem_bytes"]
+        outs = {"status": infob[0].cpu().numpy(), "fp": fb.cpu().numpy(),
+                "k12": k12.cpu().numpy()}
+        return t, outs, ok_a and torch.isfinite(xb).all().item()
+
+    def np_success_cost(st, fp):
+        cost = fp.astype(np.float64) / cfg.opt.cost_scale
+        ok = (st >= 0) & (cost < cfg.opt.reject_cost)
+        return float(ok.mean()), float(np.median(cost))
+
+    # 7a. the timed runs, the kernels alone, with nothing else on the card
+    mg_t, mg_out = {}, {}
+    for ns, npb in mg_np.items():
+        dims_m = _mg_dims(ns)
+        batch_m = from_numpy(npb, Scenario, device=dev, dtype=torch.float32)
+        t_path, ok_path = mg_path(dims_m, batch_m)
+        t_k, outs, ok_k = mg_kernel_times(dims_m, batch_m)
+        mg_t[ns] = (t_path, ok_path, t_k, ok_k)
+        mg_out[ns] = outs
+    # 7b. the plain round loop per class in float64, from x0 and from
+    # MG_PERTURB perturbed copies of it, in parallel processes (each host
+    # bound; the card is otherwise idle now)
+    plain = {}
+    workers = ctx.Pool(processes=7)
+    try:
+        jobs = {(ns, seed): workers.apply_async(
+            _mg_plain_worker, (ns, npb, seed, iters))
+            for ns, npb in mg_np.items() for seed in (None, *MG_PERTURB)}
+        for key, job in jobs.items():
+            plain[key] = job.get(timeout=900)
+    finally:
+        workers.terminate()
+        workers.join()
+
+    per_class, mg_rows, mg_failed = {}, [], []
+    mg_launches = [0, 0]
+    for ns, (t_path, ok_path, t_k, ok_k) in mg_t.items():
+        k_out = mg_out[ns]
+        p64 = plain[(ns, None)]
+        s_k, c_k = np_success_cost(k_out["status"], k_out["fp"])
+        s_64, c_64 = np_success_cost(p64[iters]["status"], p64[iters]["fp"])
+        pert = [np_success_cost(plain[(ns, sd)][iters]["status"],
+                                plain[(ns, sd)][iters]["fp"])
+                for sd in MG_PERTURB]
+        spread_s = max(abs(v[0] - s_64) for v in pert)
+        spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
+        ref12 = np.stack([p64[12]["status"], p64[12]["k"], p64[12]["n_evals"]])
+        share_k = float((k_out["k12"] == ref12).all(axis=0).mean())
+        ok_s = abs(s_k - s_64) <= 0.02 + spread_s
+        ok_c = abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64)
+        ok_12 = share_k >= MG_SHARE12
+        t_k.update(success_kernel_b=s_k, success_plain_f64=s_64,
+                   cost_p50_kernel_b=c_k, cost_p50_plain_f64=c_64,
+                   success_cost_p50_plain_f64_perturbed=pert,
+                   spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
+                   share_12iter_vs_f64=share_k,
+                   plain_ms_b_f64=p64[iters]["seconds"] * 1e3)
+        ok = ok_path and ok_k and ok_s and ok_c and ok_12
+        mg_launches[0] += t_path["launches"]["eval_fg"]
+        mg_launches[1] += t_path["launches"]["solve_fused"]
+        mg_rows.append(dict(ns=list(ns), **t_k))
+        tol = ("A vs plain float64: |df|/|f|<=1e-4, max|dg|<=1e-3*max(1,"
+               "max|g|); B vs the plain round loop in float64: |dsuccess|<="
+               "0.02+spread, |dcost p50|<=(2%+spread) (spread: the float64 "
+               "loop's own largest move with x0 perturbed by 1e-7, 3 seeds), "
+               "12-iteration paths equal on >=50% of the lanes; both kernels "
+               "launched; finite coefficients, boundary positions to 1e-3 m")
+        if len(ns) == 3:
+            _emit("multigear_s3", Ns=list(ns), B=MG_B, **t_path, kernels=t_k,
+                  tol=tol, ok=bool(ok))
+        else:
+            share = pool[ns].ini_state.shape[0] / max(n_s2, 1)
+            per_class[ns] = dict(t_path, share=share)
+            _emit("multigear_class", Ns=list(ns), B=MG_B,
+                  plans=int(pool[ns].ini_state.shape[0]), share=share,
+                  **t_path, kernels=t_k, tol=tol, ok=bool(ok))
+        if not ok:
+            mg_failed.append(ns)
+    cov = sum(v["share"] for v in per_class.values())
+    agg = {
+        "coverage": cov, "classes": len(per_class), "B": MG_B,
+        "rate_direct": cov / sum(v["share"] / v["rate_direct"]
+                                 for v in per_class.values()),
+        "rate_ladder": cov / sum(v["share"] / v["rate_ladder"]
+                                 for v in per_class.values()),
+        "succ": sum(v["share"] * v["succ"] for v in per_class.values())
+        / cov,
+        "succ_direct": sum(v["share"] * v["succ_direct"]
+                           for v in per_class.values()) / cov,
+        "cost_p50_lead": per_class.get(MG_BENCHED[0], {}).get("cost_p50"),
+        "launches": {"eval_fg": mg_launches[0],
+                     "solve_fused": mg_launches[1]}}
+    ok_agg = agg["succ"] >= 0.99
+    _emit("multigear_path", **agg,
+          jax_reference={"rate": 3715.2, "succ": 0.9981,
+                         "succ_direct": 0.8151, "coverage": 0.975,
+                         "source": "BENCH_r05.json (TPU v5e); not the "
+                                   "port's"},
+          tol="ladder success >= 0.99 (PERF.md section 2)", ok=bool(ok_agg))
+    if mg_failed:
+        raise AssertionError(f"multigear classes {mg_failed} failed their "
+                             f"gates")
+    if not ok_agg:
+        raise AssertionError("multigear path: ladder success below 0.99")
+    sizes = _sass_sizes(so) or {}
+    _emit("multigear_compiler", ptxas={
+        k: v for k, v in regs.items() if "kernelILi" in k},
+        machine_instructions={k: v for k, v in sizes.items()
+                              if "kernelILi" in k})
+
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
          "source": "dftpav_tpu_torch/csrc/kernels.cu",
          "replaces": "dftpav_tpu/ops/kcost.py:772",
          "launches": launches["eval_fg"], "max_abs_err": err_a,
          "err_of": f"f and g vs plain float32 at B={B_chk}",
+         "launches_by_path": {"main": launches["eval_fg"],
+                              "multigear": mg_launches[0]},
+         "per_class": [{"ns": r["ns"], "ms": r["ms_a"],
+                        "plain_ms": r["plain_ms_a"],
+                        "bound_ms": r["bound_ms_a"],
+                        "bound_by": r["bound_by_a"],
+                        "max_abs_err": r["max_abs_err_a"],
+                        "err_of": "f and g vs plain float64 at the class's "
+                                  "x0"} for r in mg_rows],
          "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"],
          "bound_ms": times_main["bound_ms_a"],
          "bound_by": times_main["bound_by_a"], "library_ms": None},
@@ -919,6 +1342,12 @@ def main(argv=None) -> int:
          "replaces": "dftpav_tpu/ops/pallas_solve.py:567",
          "launches": launches["solve_fused"], "max_abs_err": err_b,
          "err_of": "final f after 12 iterations, lanes whose path matched",
+         "launches_by_path": {"main": launches["solve_fused"],
+                              "multigear": mg_launches[1]},
+         "per_class": [{"ns": r["ns"], "ms": r["ms_b"],
+                        "plain_ms_f64": r["plain_ms_b_f64"],
+                        "bound_ms": r["bound_ms_b"],
+                        "bound_by": r["bound_by_b"]} for r in mg_rows],
          "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"],
          "bound_ms": times_main["bound_ms_b"],
          "bound_by": times_main["bound_by_b"], "library_ms": None},

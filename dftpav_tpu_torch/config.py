@@ -133,9 +133,46 @@ def resolve_vt_scale(vt_scale, ns_tuple) -> tuple:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Kinodynamic A* front end (map_cfg, minco_config.pb.txt:13-63,
+    kino_astar.cpp:372-442)."""
+
+    map_size_x: float = 1000.0
+    map_size_y: float = 1000.0
+    horizon: float = 50.0
+    yaw_resolution: float = 0.3
+    lambda_heu: float = 5.0
+    allocate_num: int = 100000
+    check_num: int = 5
+    max_search_time: float = 1.0
+    traj_forward_penalty: float = 1.0
+    traj_back_penalty: float = 2.5
+    traj_gear_switch_penalty: float = 15.0
+    traj_steer_penalty: float = 0.5
+    traj_steer_change_penalty: float = 0.0
+    map_resolution: float = 0.3
+    step_arc: float = 0.9
+    checkl: float = 0.2
+    oneshot_range: float = 15.0     # Reeds-Shepp one-shot within this range
+    max_frontend_forward_vel: float = 5.0
+    max_frontend_forward_acc: float = 8.0
+    max_frontend_backward_vel: float = 2.0
+    max_frontend_backward_acc: float = 4.0
+    max_frontend_cur: float = 1.0
+    non_siguav: float = 0.2         # near-zero speed (kino_astar.h:207)
+    collision_margin: float = 0.2   # A* vehicle inflation (kino_astar.cpp:426)
+    sample_time: float = 0.1        # flat-trajectory resampling period
+    # yaw-keyed node table first, the 2D key on failure (the reference's
+    # use3d retry, traj_manager.cpp:85-93)
+    use3d: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class PlannerConfig:
     vehicle: VehicleParam = dataclasses.field(default_factory=VehicleParam)
     opt: OptConfig = dataclasses.field(default_factory=OptConfig)
+    frontend: FrontendConfig = dataclasses.field(
+        default_factory=FrontendConfig)
 
     replan_rate_hz: float = 20.0
     control_rate_hz: float = 100.0

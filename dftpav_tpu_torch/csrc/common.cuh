@@ -24,6 +24,10 @@ DFT_HD float m_log(float x) { return logf(x); }
 DFT_HD double m_log(double x) { return log(x); }
 DFT_HD float m_floor(float x) { return floorf(x); }
 DFT_HD double m_floor(double x) { return floor(x); }
+DFT_HD float m_cos(float x) { return cosf(x); }
+DFT_HD double m_cos(double x) { return cos(x); }
+DFT_HD float m_sin(float x) { return sinf(x); }
+DFT_HD double m_sin(double x) { return sin(x); }
 DFT_HD float m_abs(float x) { return fabsf(x); }
 DFT_HD double m_abs(double x) { return fabs(x); }
 #ifdef __CUDACC__
@@ -59,5 +63,15 @@ template <class T> DFT_HD T sl1_grad(T x) {
 
 // Largest number of corridor half-planes per sample row the kernels take.
 constexpr int kMaxH = 8;
+
+// Largest number of gear segments the kernels take.
+constexpr int kMaxS = 3;
+
+// a[s] for s < kMaxS by selects, so that an array of a struct in
+// registers is never indexed at run time.
+template <class V>
+DFT_HD V pick(const V* a, int s) {
+  return s == 0 ? a[0] : (s == 1 ? a[1] : a[2]);
+}
 
 }  // namespace dftpav

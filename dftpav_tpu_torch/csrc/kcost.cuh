@@ -7,26 +7,36 @@
 // dftpav_tpu_torch/ops/kcost.py eval_cost, whose autograd gradient is the
 // plain reference for the one written out here:
 //
-//   * _pre: rhs per dimension = (head p, v*dT, a*dT^2 | inner waypoints |
-//     tail p, v*dT, a*dT^2), T = virtual_to_real(vt * sigma), dT = T / N;
+//   * _pre, per gear segment s: rhs per dimension = (head p, v*dT, a*dT^2 |
+//     the n_s - 1 inner waypoints | tail p, v*dT, a*dT^2 | zeros to N + 5),
+//     T_s = virtual_to_real(vt_s * sigma_s), dT = T_s / n_s; the junction
+//     between segments s and s + 1 takes its position from the gear
+//     variables and its velocity -+non_sinv (cos a, sin a) when segment
+//     s + 1 is unmasked;
 //   * jerk energy dT^-5 rhs^T Q rhs plus wei_time * T;
 //   * per sample row r: sig = P0 rhs, dsig = P1 rhs / dT, ddsig = P2 rhs / dT^2,
 //     then the corridor hinge (E x H, penalty.cuh corridor_row, shared with
 //     the corridor kernels), feasibility (speed, acceleration, two-sided
-//     curvature) and the dual log-sum-exp obstacle distance.
+//     curvature) and the dual log-sum-exp obstacle distance, the obstacle
+//     sampled at the absolute time rel_t0 + tt_s + frac dT (tt_s: the
+//     earlier segments' durations). Each segment has its own sample maps
+//     (built for its piece count n_s) and its own rows of the slabs.
 //
 // Gradient: every row's penalty depends only on (sig, dsig, ddsig, dT), so it
 // is differentiated row-locally -- corridor and feasibility in closed form,
 // the obstacle block by forward-mode dual numbers over (sig_x, sig_y, u, v,
-// dT) -- and chained back through P_o^T to rhs, then through _pre to x.
+// t) with t the sample's absolute time -- and chained back through P_o^T to
+// rhs, then through _pre to x.
 // Rows whose weight is zero (invalid samples, obstacle gate closed, hinge
 // inactive) contribute exactly zero and are skipped; JAX's where-selects give
 // the same zeros.
 //
 // Mapping (lane_eval): the G members of a team (team.cuh: one warp on the
 // card, G = 32; the host harness runs the same members in turn) share one
-// lane. Every stage is a function of one member plus a combine over the
-// team:
+// lane. The segments run one after another, the last first (so that the
+// gradient of each segment's duration is complete when it is reached: the
+// later segments' obstacle times depend on it); within a segment every
+// stage is a function of one member plus a combine over the team:
 //   1. rhs and the jerk form: member m takes entries m, m + G, ... of the
 //      2 (N + 5) rhs values (written once per evaluation, in double, to the
 //      lane's scratch) and of Q rhs; the energy is a team sum;
@@ -38,9 +48,10 @@
 //      prefix popcount into a ring of 2G entries; whenever G are waiting,
 //      member m runs the obstacle penalty of entry m in dual numbers (its
 //      .v is the value), so the team never idles on one member's pair;
-//   4. combine: the per-member gradient partials (2 (N + 5) rhs slots and
-//      dT) are reduce-scattered, and member m finishes the rhs slots it
-//      holds through the jerk form and _pre.
+//   4. combine: the per-member gradient partials (2 (N + 5) rhs slots, dT
+//      and the time offset tt) are reduce-scattered, member m finishes the
+//      rhs slots it holds through the jerk form and _pre, and member 0
+//      chains the junction rows into the gear variables.
 // Every combine is an xor butterfly (team.cuh), so the result depends on
 // which member took which row, never on timing: two runs are bitwise equal.
 //
@@ -184,21 +195,30 @@ DFT_HD Dual<T, K> sl1(const Dual<T, K>& x) {
 // ---------------------------------------------------------------------------
 
 // Layout of the weight vector handed to the C entry points (host order).
+// The class (segments, piece counts, rows) rides at its end.
 enum WIdx {
   W_WEI_OBS = 0, W_WEI_SUR, W_WEI_FEAS, W_WEI_TIME,
   W_MFV, W_MFA, W_MFC, W_MBV, W_MBA, W_MBC,
-  W_MINI_T, W_EPIS, W_ALPHA, W_COST_SCALE, W_NEAR_R2, W_D_MIN, W_SIGMA,
+  W_MINI_T, W_EPIS, W_ALPHA, W_COST_SCALE, W_NEAR_R2, W_D_MIN,
+  W_SIGMA,        // virtual-time sigma of segment 0
   W_LE = 17,      // 8 values: hull vertices (x, y) x 4, clockwise
   W_EH = 25,      // 8 values: unit edge vectors (x, y) x 4
-  W_LEN = 33
+  W_NON_SINV = 33,
+  W_NSEG = 34,    // gear segments S
+  W_NS = 35,      // kMaxS values: pieces n_s of segment s
+  W_RS = 38,      // kMaxS values: weighted sample rows of segment s
+  W_SIG = 41,     // kMaxS values: virtual-time sigma of segment s
+  W_LEN = 44
 };
 
 template <class T>
 struct KW {
   T wei_obs, wei_sur, wei_feas, wei_time;
   T mfv, mfa, mfc, mbv, mba, mbc;
-  T mini_t, epis, alpha, cost_scale, near_r2, d_min, sigma;
+  T mini_t, epis, alpha, cost_scale, near_r2, d_min, non_sinv;
   T le[4][2], eh[4][2];
+  int nseg, ns[kMaxS], rs[kMaxS];
+  T sig[kMaxS];
 };
 
 template <class T, class S>
@@ -210,26 +230,33 @@ DFT_HD KW<T> make_kw(const S* a) {
   w.mbv = T(a[W_MBV]); w.mba = T(a[W_MBA]); w.mbc = T(a[W_MBC]);
   w.mini_t = T(a[W_MINI_T]); w.epis = T(a[W_EPIS]); w.alpha = T(a[W_ALPHA]);
   w.cost_scale = T(a[W_COST_SCALE]); w.near_r2 = T(a[W_NEAR_R2]);
-  w.d_min = T(a[W_D_MIN]); w.sigma = T(a[W_SIGMA]);
+  w.d_min = T(a[W_D_MIN]); w.non_sinv = T(a[W_NON_SINV]);
   for (int e = 0; e < 4; ++e)
     for (int j = 0; j < 2; ++j) {
       w.le[e][j] = T(a[W_LE + 2 * e + j]);
       w.eh[e][j] = T(a[W_EH + 2 * e + j]);
     }
+  w.nseg = int(a[W_NSEG]);
+  for (int s = 0; s < kMaxS; ++s) {
+    w.ns[s] = int(a[W_NS + s]);
+    w.rs[s] = int(a[W_RS + s]);
+    w.sig[s] = T(a[W_SIG + s]);
+  }
   return w;
 }
 
 // Lane-minor slabs (the layout of ops/kcost.py KScenario): element (row, lane)
-// of an [rows, B] slab sits at row * B + lane.
+// of an [rows, B] slab sits at row * B + lane. The sample rows of segment s
+// are rows s R .. s R + R - 1 of the corridor slabs.
 template <class T>
 struct Slabs {
-  const T* bnd;    // [12.., B]
-  const T* misc;   // [2 + 3 O.., B]
-  const T* cn;     // [H, 2, R, B]
-  const T* cp;     // [H, 2, R, B]
-  const T* cm;     // [H, R, B]
+  const T* bnd;    // [12 S.., B]
+  const T* misc;   // [2 S + 3 O.., B]
+  const T* cn;     // [H, 2, S R, B]
+  const T* cp;     // [H, 2, S R, B]
+  const T* cm;     // [H, S R, B]
   const T* obs;    // [O, 2, 6 Po, B]
-  int B, R, H, O, Po;
+  int B, R, H, O, Po, S;
 };
 
 template <class S, class T>
@@ -291,8 +318,9 @@ DFT_HD ObsLane<T> obs_lane(const T* cx, const T* cy, int Po, T dt, T rel_t0,
   return ol;
 }
 
-// The obstacle at a sample's time rel_t0 + frac * dT: its position, and the
-// piece and local time whose derivative gives its heading.
+// The obstacle at a sample's absolute time pt = rel_t0 + tt + frac * dT:
+// its position, and the piece and local time whose derivative gives its
+// heading.
 template <class S>
 struct ObsAt {
   S p_x, p_y, tau_r;
@@ -300,9 +328,8 @@ struct ObsAt {
 };
 
 template <class S, class T>
-DFT_HD ObsAt<S> obstacle_at(const S& dT, T frac, const ObsLane<T>& ol,
-                            const T* cx, const T* cy, int Po) {
-  const S pt = ol.rel_t0 + frac * dT;
+DFT_HD ObsAt<S> obstacle_at(const S& pt, const ObsLane<T>& ol, const T* cx,
+                            const T* cy, int Po) {
   const bool inside = val(pt) < ol.total;
   const S ft = (inside ? pt : S(ol.total)) / ol.dt;
   T idxf = m_floor(val(ft));
@@ -405,10 +432,9 @@ struct RunLse {
 // d_min - D < 0 and the penalty is exactly 0, so only pairs that fail it
 // go on to the dual-number pass.
 template <class T>
-DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T dT, T frac,
-                          const ObsLane<T>& ol, const T* cx, const T* cy,
-                          int Po, const KW<T>& w) {
-  const ObsAt<T> a = obstacle_at<T, T>(dT, frac, ol, cx, cy, Po);
+DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T pt, const ObsLane<T>& ol,
+                          const T* cx, const T* cy, int Po, const KW<T>& w) {
+  const ObsAt<T> a = obstacle_at<T, T>(pt, ol, cx, cy, Po);
   const T rel_x = a.p_x - sx;
   const T rel_y = a.p_y - sy;
   if (!(rel_x * rel_x + rel_y * rel_y <= w.near_r2)) return false;
@@ -430,14 +456,15 @@ DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T dT, T frac,
 
 // One obstacle's penalty at one valid sample row: 0 when the obstacle is
 // beyond the gate or the smooth signed distance is above d_min. S is T
-// (value) or Dual<T, 5> (value + d/d(sig_x, sig_y, u, v, dT)). Both
-// log-sum-exps (over an edge's 4 cross terms, and over the 8 edges) run
-// online, so no array of dual numbers is held.
+// (value) or Dual<T, 5> (value + d/d(sig_x, sig_y, u, v, pt), pt the
+// sample's absolute time). Both log-sum-exps (over an edge's 4 cross
+// terms, and over the 8 edges) run online, so no array of dual numbers is
+// held.
 template <class S, class T>
 DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
-                      const S& dT, T frac, const ObsLane<T>& ol, const T* cx,
+                      const S& pt, const ObsLane<T>& ol, const T* cx,
                       const T* cy, int Po, const KW<T>& w) {
-  const ObsAt<S> a = obstacle_at<S, T>(dT, frac, ol, cx, cy, Po);
+  const ObsAt<S> a = obstacle_at<S, T>(pt, ol, cx, cy, Po);
   S uo, vo;
   obstacle_heading(a, cx, cy, uo, vo);
   const S rel_x = a.p_x - sx;
@@ -461,16 +488,17 @@ DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
 // One lane's evaluation, split over the members of a team
 // ---------------------------------------------------------------------------
 
-template <int N>
+template <int N, int S = 1>
 struct KDims {
   static constexpr int C = N + 5;                 // rhs rows per dimension
-  static constexpr int NIN = 2 * (N - 1);         // inner-waypoint rows
-  static constexpr int DIM = NIN + 1;             // decision length (S = 1)
+  static constexpr int NIN = 2 * S * (N - 1);     // inner-waypoint rows
+  static constexpr int DIM = NIN + S + 3 * (S - 1);  // decision length
   static constexpr int DP = ((DIM + 7) / 8) * 8 > 16 ? ((DIM + 7) / 8) * 8 : 16;
 };
 
 // Slots of a member's gradient partials: the 2 (N + 5) rhs entries, then
-// d/d dT; a multiple of every team size.
+// d/d dT and d/d tt (the segment's time offset); a multiple of every team
+// size.
 constexpr int kAcc = 32;
 
 // A member's gradient partials in the team's scratch: slot i of member m
@@ -493,19 +521,22 @@ struct NearPair {
 };
 
 // What one lane's evaluation reads and writes. The class constants are
-// shared by every lane; the lane's rows are its own; the rest is the team's
-// scratch (shared memory on the card).
+// shared by every lane, one set per distinct piece count (segments with
+// equal n_s share theirs); the lane's rows are its own; the rest is the
+// team's scratch (shared memory on the card). lane_eval points the
+// segment fields (planes .. bnd) at the segment it works on.
 template <class T>
 struct LaneData {
-  const double* Pd;      // [3][R][C] sample maps, in double
-  const T* P;            // the same in T
-  const T* Q;            // [C][C] jerk form
-  const T* gridc;        // [2][R] quadrature weight (0: skipped), time frac
-  int R, H, O, Po;
-  T sgl;                 // gear sign
-  Planes<T> planes;      // half-planes of row 0; row r at + r * plane_row
-  size_t plane_row;
-  const T* bnd;          // [12] head p, v, a; tail p, v, a (x, y each)
+  const double* Pds[kMaxS];  // [3][R_s][C] sample maps, in double
+  const T* Ps[kMaxS];        // the same in T
+  const T* Qs[kMaxS];        // [C][C] jerk form
+  const T* gridcs[kMaxS];    // [2][R_s] quadrature weight (0: skipped), frac
+  int H, O, Po;
+  int seg_rows;          // rows of a segment in the slabs (their R)
+  Planes<T> planes_lane;  // the lane's half-planes of row 0, segment 0;
+  size_t plane_row;       // row r at + r * plane_row
+  const T* bnd_lane;     // [12 S] head p, v, a; tail p, v, a (x, y each)
+  const T* lm;           // [2 S] gear sign, then seg_mask, per segment
   const T* obs;          // [O][2][6 Po] obstacle coefficients
   const ObsLane<T>* ol;  // [O]
   T* x;                  // [DP] the point to evaluate
@@ -514,28 +545,43 @@ struct LaneData {
   T* qr;                 // [2][C] Q rhs
   NearPair<T>* ring;     // [2 G]
   T* acc;                // [kAcc][G] the members' gradient partials
+  T* sb;                 // [12] the segment's boundary after the junctions
+  T* gb;                 // [8] gradients of the junction-fed boundary rows
+  // the segment being evaluated
+  Planes<T> planes;      // its half-planes of row 0
+  const double* Pd;
+  const T* P;
+  const T* Q;
+  const T* gridc;
+  int R;                 // rows of its sample maps
+  int s, ns;             // its index and pieces
+  T sgl, tt;             // gear sign, time offset
+  const T* bnd;          // [12] its boundary
 };
 
-// Copies lane `lane`'s boundary rows and obstacle coefficients from the
-// slabs into the team's scratch (bnd_s [12], obs_s [O][2][6 Po]) and sets
-// up its obstacles (ol_s [O]).
-template <class T, class Team>
+// Copies lane `lane`'s boundary rows, gear signs and segment masks, and
+// obstacle coefficients from the slabs into the team's scratch (bnd_s
+// [12 S], lm_s [2 S], obs_s [O][2][6 Po]) and sets up its obstacles (ol_s
+// [O]).
+template <int S, class T, class Team>
 DFT_HD void stage_lane(const Team& tm, const Slabs<T>& sl, int lane, T* bnd_s,
-                       T* obs_s, ObsLane<T>* ol_s) {
+                       T* lm_s, T* obs_s, ObsLane<T>* ol_s) {
   const size_t B = (size_t)sl.B;
   const int O = sl.O, Po = sl.Po, n_obs = 12 * O * Po;
   for (int k = 0; k < Team::kRun; ++k) {
     const int m = tm.member(k);
-    for (int i = m; i < 12; i += Team::G) bnd_s[i] = sl.bnd[i * B + lane];
+    for (int i = m; i < 12 * S; i += Team::G) bnd_s[i] = sl.bnd[i * B + lane];
+    for (int i = m; i < 2 * S; i += Team::G) lm_s[i] = sl.misc[i * B + lane];
     for (int i = m; i < n_obs; i += Team::G) obs_s[i] = sl.obs[i * B + lane];
   }
   tm.sync();
+  const int ob = 2 * S;
   for (int k = 0; k < Team::kRun; ++k)
     for (int o = tm.member(k); o < O; o += Team::G)
       ol_s[o] = obs_lane(obs_s + 12 * Po * o, obs_s + 12 * Po * o + 6 * Po,
-                         Po, sl.misc[(size_t)(2 + o) * B + lane],
-                         sl.misc[(size_t)(2 + O + o) * B + lane],
-                         sl.misc[(size_t)(2 + 2 * O + o) * B + lane] > T(0.5));
+                         Po, sl.misc[(size_t)(ob + o) * B + lane],
+                         sl.misc[(size_t)(ob + O + o) * B + lane],
+                         sl.misc[(size_t)(ob + 2 * O + o) * B + lane] > T(0.5));
   tm.sync();
 }
 
@@ -546,48 +592,54 @@ DFT_HD Planes<T> planes_slab(const Slabs<T>& sl, int lane) {
   pl.n = sl.cn + lane;
   pl.p = sl.cp + lane;
   pl.m = sl.cm + lane;
-  pl.stride = (size_t)sl.R * sl.B;
+  pl.stride = (size_t)sl.S * sl.R * sl.B;
   return pl;
 }
 
-// Kernel B reads them lane-major, from a copy [B][5 H][R] made once per
-// launch: plane q of lane b at (b * 5 H + q) * R, planes cn (2 H), cp (2 H),
-// cm (H) in that order. A lane's rows are then contiguous, so a warp that
-// works on one lane reads each plane in whole lines.
+// Kernel B reads them lane-major, from a copy [B][5 H][S R] made once per
+// launch: plane q of lane b at (b * 5 H + q) * S R, planes cn (2 H), cp
+// (2 H), cm (H) in that order. A lane's rows are then contiguous, so a warp
+// that works on one lane reads each plane in whole lines.
 template <class T>
 DFT_HD const T* lane_major_src(const Slabs<T>& sl, int q) {
-  const size_t RB = (size_t)sl.R * sl.B;
+  const size_t RB = (size_t)sl.S * sl.R * sl.B;
   const int H = sl.H;
   if (q < 2 * H) return sl.cn + q * RB;
   if (q < 4 * H) return sl.cp + (q - 2 * H) * RB;
   return sl.cm + (q - 4 * H) * RB;
 }
 template <class T>
-DFT_HD Planes<T> planes_lane_major(const T* copy, int lane, int H, int R) {
-  const T* base = copy + (size_t)lane * 5 * H * R;
+DFT_HD Planes<T> planes_lane_major(const T* copy, int lane, int H, int RS) {
+  const T* base = copy + (size_t)lane * 5 * H * RS;
   Planes<T> pl;
   pl.n = base;
-  pl.p = base + (size_t)2 * H * R;
-  pl.m = base + (size_t)4 * H * R;
-  pl.stride = (size_t)R;
+  pl.p = base + (size_t)2 * H * RS;
+  pl.m = base + (size_t)4 * H * RS;
+  pl.stride = (size_t)RS;
   return pl;
 }
 
-// Lane-level values of one evaluation, the same on every member.
+// Segment-level values of one evaluation, the same on every member.
 template <class T>
 struct EvPre {
   T vt, Ttot, qneg, dT, dT2, invdT, invdT2, i5;
   T max_vel, max_acc, max_cur;
 };
 
-template <class T, int N>
-DFT_HD EvPre<T> ev_pre(T x_nin, T sgl, const KW<T>& w) {
+template <class T>
+DFT_HD T virtual_to_real(T vt, T mini_t) {
+  const T Tpos = (T(0.5) * vt + T(1)) * vt + T(1);
+  const T qneg = (T(0.5) * vt - T(1)) * vt + T(1);
+  return (vt > T(0) ? Tpos : T(1) / qneg) + mini_t;
+}
+
+template <class T>
+DFT_HD EvPre<T> ev_pre(T x_vt, T sigma, int ns, T sgl, const KW<T>& w) {
   EvPre<T> e;
-  e.vt = x_nin * w.sigma;
-  const T Tpos = (T(0.5) * e.vt + T(1)) * e.vt + T(1);
+  e.vt = x_vt * sigma;
   e.qneg = (T(0.5) * e.vt - T(1)) * e.vt + T(1);
-  e.Ttot = (e.vt > T(0) ? Tpos : T(1) / e.qneg) + w.mini_t;
-  e.dT = e.Ttot / T(N);
+  e.Ttot = virtual_to_real(e.vt, w.mini_t);
+  e.dT = e.Ttot / T(ns);
   e.dT2 = e.dT * e.dT;
   e.invdT = T(1) / e.dT;
   e.invdT2 = e.invdT * e.invdT;
@@ -599,18 +651,20 @@ DFT_HD EvPre<T> ev_pre(T x_nin, T sgl, const KW<T>& w) {
   return e;
 }
 
-// rhs entry i = d (N + 5) + c (_pre).
-template <class T, int N>
+// rhs entry i = d (N + 5) + c of the segment (_pre).
+template <class T, int N, int S>
 DFT_HD T rhs_entry(int i, const LaneData<T>& L, const EvPre<T>& e) {
   constexpr int C = N + 5;
-  const int d = i / C, c = i - d * C;
+  const int d = i / C, c = i - d * C, ns = S == 1 ? N : L.ns;
+  const int seg = S == 1 ? 0 : L.s;
   if (c == 0) return L.bnd[d];
   if (c == 1) return L.bnd[2 + d] * e.dT;
   if (c == 2) return L.bnd[4 + d] * e.dT2;
-  if (c < N + 2) return L.x[2 * (c - 3) + d];
-  if (c == N + 2) return L.bnd[6 + d];
-  if (c == N + 3) return L.bnd[8 + d] * e.dT;
-  return L.bnd[10 + d] * e.dT2;
+  if (c < ns + 2) return L.x[2 * ((N - 1) * seg + c - 3) + d];
+  if (c == ns + 2) return L.bnd[6 + d];
+  if (c == ns + 3) return L.bnd[8 + d] * e.dT;
+  if (c == ns + 4) return L.bnd[10 + d] * e.dT2;
+  return T(0);
 }
 
 // (Q rhs_d)_c for entry i = d (N + 5) + c, stored to qr; returns entry i's
@@ -635,7 +689,7 @@ struct RowOut {
   unsigned near;
 };
 
-template <class T, int N>
+template <class T, int N, int S>
 DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
                           const KW<T>& w, const Acc<T>& acc, double& f) {
   constexpr int C = N + 5;
@@ -735,9 +789,11 @@ DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
   const int Po = L.Po;
   for (int o = 0; o < L.O; ++o)
     if (L.ol[o].active &&
-        obstacle_near(sx, sy, u, v, e.dT, frac, L.ol[o],
-                      L.obs + 12 * Po * o, L.obs + 12 * Po * o + 6 * Po,
-                      Po, w))
+        obstacle_near(sx, sy, u, v,
+                      (S == 1 ? L.ol[o].rel_t0 : L.ol[o].rel_t0 + L.tt) +
+                          frac * e.dT,
+                      L.ol[o], L.obs + 12 * Po * o,
+                      L.obs + 12 * Po * o + 6 * Po, Po, w))
       out.near |= 1u << o;
   out.p.sx = sx;
   out.p.sy = sy;
@@ -750,8 +806,9 @@ DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
 }
 
 // The obstacle term of one near pair, in dual numbers, and its gradient
-// chained to the rhs slots and dT, added to the member's partials.
-template <class T, int N>
+// chained to the rhs slots, dT and (multi-gear) tt, added to the member's
+// partials.
+template <class T, int N, int S>
 DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
                       const EvPre<T>& e, const KW<T>& w, const Acc<T>& acc,
                       double& f) {
@@ -762,18 +819,28 @@ DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
   const T sgl = L.sgl;
   const T nx = q.dsx * q.inv_vn, ny = q.dsy * q.inv_vn;
   typedef Dual<T, 5> D5;
+  // the fifth variable: dT at S = 1 (the sample's time rel_t0 + frac dT
+  // formed in dual numbers), else the sample's absolute time
   D5 a[5];
-  const T in[5] = {q.sx, q.sy, nx * sgl, ny * sgl, e.dT};
+  const T in[5] = {q.sx, q.sy, nx * sgl, ny * sgl,
+                   S == 1 ? e.dT : (L.ol[o].rel_t0 + L.tt) + frac * e.dT};
   for (int i = 0; i < 5; ++i) {
     a[i] = D5(in[i]);
     a[i].d[i] = T(1);
   }
-  const D5 pd = obstacle_pen<D5, T>(a[0], a[1], a[2], a[3], a[4], frac,
-                                    L.ol[o], L.obs + 12 * Po * o,
+  const D5 pt = S == 1 ? L.ol[o].rel_t0 + frac * a[4] : a[4];
+  const D5 pd = obstacle_pen<D5, T>(a[0], a[1], a[2], a[3], pt, L.ol[o],
+                                    L.obs + 12 * Po * o,
                                     L.obs + 12 * Po * o + 6 * Po, Po, w);
   if (!(pd.v > T(0))) return;
   f += double(w.wei_sur) * double(wq * pd.v);
-  acc[2 * C] += omg * (w.wei_sur * pd.v) + wq * w.wei_sur * pd.d[4];
+  if (S == 1) {
+    acc[2 * C] += omg * (w.wei_sur * pd.v) + wq * w.wei_sur * pd.d[4];
+  } else {
+    const T g_t = wq * (w.wei_sur * pd.d[4]);    // d/d(absolute time)
+    acc[2 * C] += omg * (w.wei_sur * pd.v) + frac * g_t;
+    acc[2 * C + 1] += g_t;
+  }
   const T g_sx = wq * (w.wei_sur * pd.d[0]);
   const T g_sy = wq * (w.wei_sur * pd.d[1]);
   const T g_u = wq * (w.wei_sur * pd.d[2]);
@@ -792,119 +859,249 @@ DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
 }
 
 // rhs slot i = d (N + 5) + c with its summed partial gsum: back through the
-// jerk form; writes the decision gradient of an inner waypoint and returns
-// the slot's share of d/d dT (the boundary rows scaled by dT, dT^2).
-template <class T, int N>
+// jerk form; writes the decision gradient of an inner waypoint, and of a
+// junction-fed boundary row (multi-gear) to L.gb, and returns the slot's
+// share of d/d dT (the boundary rows scaled by dT, dT^2).
+template <class T, int N, int S>
 DFT_HD T tail_entry(int i, T gsum, const LaneData<T>& L, const EvPre<T>& e,
                     const KW<T>& w) {
   constexpr int C = N + 5;
-  const int d = i / C, c = i - d * C;
+  const int d = i / C, c = i - d * C, ns = S == 1 ? N : L.ns;
+  const int seg = S == 1 ? 0 : L.s;
   T qt = T(0);                                   // (Q^T rhs_d)_c
   for (int k = 0; k < C; ++k) qt += L.Q[k * C + c] * T(L.rhs[d * C + k]);
   const T g_rhs = gsum + e.i5 * (L.qr[i] + qt);
-  if (c >= 3 && c < N + 2) L.g[2 * (c - 3) + d] = w.cost_scale * g_rhs;
+  if (c >= 3 && c < ns + 2)
+    L.g[2 * ((N - 1) * seg + c - 3) + d] = w.cost_scale * g_rhs;
+  if (S > 1) {
+    if (c == 0) L.gb[d] = g_rhs;
+    if (c == 1) L.gb[2 + d] = g_rhs * e.dT;
+    if (c == ns + 2) L.gb[4 + d] = g_rhs;
+    if (c == ns + 3) L.gb[6 + d] = g_rhs * e.dT;
+  }
   if (c == 1) return g_rhs * L.bnd[2 + d];
   if (c == 2) return g_rhs * L.bnd[4 + d] * T(2) * e.dT;
-  if (c == N + 3) return g_rhs * L.bnd[8 + d];
-  if (c == N + 4) return g_rhs * L.bnd[10 + d] * T(2) * e.dT;
+  if (c == ns + 3) return g_rhs * L.bnd[8 + d];
+  if (c == ns + 4) return g_rhs * L.bnd[10 + d] * T(2) * e.dT;
   return T(0);
 }
 
-// f (scaled by cost_scale) at L.x, with its gradient written to L.g; every
-// member returns the same value.
-template <class T, int N, class Team>
-DFT_HD T lane_eval(const Team& tm, const LaneData<T>& L, const KW<T>& w) {
-  constexpr int C = N + 5, NE = 2 * C;
-  constexpr int NIN = KDims<N>::NIN, DP = KDims<N>::DP;
-  constexpr int G = Team::G, KR = Team::kRun, per = kAcc / G;
-  static_assert(NE + 1 <= kAcc && kAcc % G == 0, "gradient slots");
-  const EvPre<T> e = ev_pre<T, N>(L.x[NIN], L.sgl, w);
-
-  // 1. rhs (in double, once) and the jerk form
-  for (int k = 0; k < KR; ++k)
-    for (int i = tm.member(k); i < NE; i += G)
-      L.rhs[i] = double(rhs_entry<T, N>(i, L, e));
-  tm.sync();
-  double en[KR], fr[KR];
-  Acc<T> ac[KR];
-  for (int k = 0; k < KR; ++k) {
-    en[k] = 0.0;
-    fr[k] = 0.0;
-    for (int i = tm.member(k); i < NE; i += G) en[k] += jerk_entry<T, N>(i, L);
-    ac[k].p = L.acc + tm.member(k);
-    ac[k].stride = G;
-    for (int i = 0; i < kAcc; ++i) ac[k][i] = T(0);
+// Boundary value i = 2 k + d of segment s (k: head p, v, a, tail p, v, a)
+// after the gear junctions: a junction whose later segment is unmasked
+// takes its position from the gear variables and its velocity
+// -+non_sinv (cos a, sin a) (head of the later segment -, tail of the
+// earlier +).
+template <class T, int N, int S>
+DFT_HD T seg_boundary(int i, int s, const LaneData<T>& L, const KW<T>& w) {
+  constexpr int NIN = KDims<N, S>::NIN;
+  const int d = i & 1, k = i >> 1;
+  if (S > 1) {
+    const bool head = k < 2 && s > 0 && L.lm[S + s] > T(0.5);
+    const bool tail = (k == 3 || k == 4) && s < S - 1 &&
+                      L.lm[S + s + 1] > T(0.5);
+    if (head || tail) {
+      const int j = head ? s - 1 : s;
+      if (k == 0 || k == 3) return L.x[NIN + S + 2 * j + d];
+      const T ga = L.x[NIN + S + 2 * (S - 1) + j];
+      const T tv = w.non_sinv * (d == 0 ? m_cos(ga) : m_sin(ga));
+      return head ? -tv : tv;
+    }
   }
+  return L.bnd_lane[12 * s + i];
+}
 
-  // 2.-3. rows; the near pairs packed into the ring and run G at a time
-  // (the last step, with no rows, drains the ring). One call site of the
-  // dual pass keeps one copy of its code in the kernel.
-  constexpr int cap = 2 * G;
-  int head = 0, tail = 0;
-  const int J = (L.R + G - 1) / G;
-  for (int j = 0; j <= J; ++j) {
-    const bool drain = j == J;
-    RowOut<T> ro[KR];
+// Points the segment fields of L at segment s's class constants: its piece
+// count, sample maps, rows and jerk form.
+template <class T, int N, int S>
+DFT_HD void select_maps(LaneData<T>& L, const KW<T>& w, int s) {
+  L.s = s;
+  L.ns = S == 1 ? N : pick(w.ns, s);
+  L.Pd = pick(L.Pds, s);
+  L.P = pick(L.Ps, s);
+  L.Q = pick(L.Qs, s);
+  L.gridc = pick(L.gridcs, s);
+  L.R = pick(w.rs, s);
+}
+
+// Points the segment fields of L at the lane's rows of segment s: its gear
+// sign and half-planes (and a time offset of 0, set by lane_eval for a
+// later segment).
+template <class T>
+DFT_HD void select_rows(LaneData<T>& L, int s) {
+  L.sgl = L.lm[s];
+  L.tt = T(0);
+  L.planes = L.planes_lane;
+  const size_t off = (size_t)s * L.seg_rows * L.plane_row;
+  L.planes.n += off;
+  L.planes.p += off;
+  L.planes.m += off;
+}
+
+// Both, and the boundary rows: the lane's at S = 1, else the junction
+// rows that lane_eval writes. At S = 1 the caller selects the segment
+// (the maps once, the rows once per lane); lane_eval selects each
+// segment of a multi-gear class.
+template <class T, int N, int S>
+DFT_HD void select_segment(LaneData<T>& L, const KW<T>& w, int s) {
+  select_maps<T, N, S>(L, w, s);
+  select_rows(L, s);
+  L.bnd = S == 1 ? L.bnd_lane : L.sb;
+}
+
+// f (scaled by cost_scale) at L.x, with its gradient written to L.g; every
+// member returns the same value. At S = 1 the segment fields were set by
+// select_segment.
+template <class T, int N, int S, class Team>
+DFT_HD T lane_eval(const Team& tm, LaneData<T>& L, const KW<T>& w) {
+  constexpr int C = N + 5, NE = 2 * C;
+  constexpr int NIN = KDims<N, S>::NIN, DP = KDims<N, S>::DP;
+  constexpr int G = Team::G, KR = Team::kRun, per = kAcc / G;
+  static_assert(NE + 2 <= kAcc && kAcc % G == 0, "gradient slots");
+  if (S > 1)      // the gear rows of g accumulate over the segments
     for (int k = 0; k < KR; ++k)
-      ro[k] = row_pass<T, N>(drain ? L.R : tm.member(k) + G * j, L, e, w,
-                             ac[k], fr[k]);
-    for (int o = 0; o < L.O; ++o) {
-      bool fl[KR];
-      for (int k = 0; k < KR; ++k) fl[k] = ((ro[k].near >> o) & 1u) != 0u;
-      const unsigned mask = tm.ballot(fl);
-      for (int k = 0; k < KR; ++k)
-        if (fl[k]) {
-          NearPair<T> q = ro[k].p;
-          q.o = o;
-          const unsigned below = (1u << tm.member(k)) - 1u;
-          L.ring[(tail + popc(mask & below)) % cap] = q;
-        }
-      tail += popc(mask);
-      const int n = tail - head;
-      if (n >= G || (drain && o == L.O - 1 && n > 0)) {
-        tm.sync();
+      for (int i = tm.member(k); i < DP; i += G) L.g[i] = T(0);
+  double f = 0.0;
+  T g_tt_after = T(0);      // d f / d tt of the later segments, summed
+  for (int s = S - 1; s >= 0; --s) {
+    const bool on = S == 1 || L.lm[S + s] > T(0.5);
+    if (S > 1) {          // at S = 1 the caller selected it for the lane
+      select_segment<T, N, S>(L, w, s);
+      L.tt = T(0);                               // earlier segments' time
+      for (int j = 0; j < s; ++j)
+        L.tt = L.tt +
+               virtual_to_real(L.x[NIN + j] * pick(w.sig, j), w.mini_t);
+    }
+    const T sigma = pick(w.sig, s);
+    const int ns = S == 1 ? N : L.ns;
+    const EvPre<T> e = ev_pre(L.x[NIN + s], sigma, ns, L.sgl, w);
+    T g_T = T(0), g_tt = T(0);
+    if (on) {
+      if (S > 1) {
         for (int k = 0; k < KR; ++k)
-          if (tm.member(k) < n)
-            dual_pass<T, N>(L.ring[(head + tm.member(k)) % cap], L, e, w,
-                            ac[k], fr[k]);
-        head += n < G ? n : G;
+          for (int i = tm.member(k); i < 12; i += G)
+            L.sb[i] = seg_boundary<T, N, S>(i, s, L, w);
         tm.sync();
       }
-    }
-  }
 
-  // 4. combine, then back through the jerk form and _pre
-  T acc[KR][kAcc];
-  for (int k = 0; k < KR; ++k)
-    for (int i = 0; i < kAcc; ++i) acc[k][i] = ac[k][i];
-  tm.reduce_scatter(acc);
-  const double energy = tm.sum(en);
-  const double f_rows = tm.sum(fr);
-  T gdt[KR];
-  for (int k = 0; k < KR; ++k) {
-    gdt[k] = T(0);
-    for (int q = 0; q < per; ++q) {
-      const int i = tm.member(k) * per + q;
-      if (i < NE)
-        gdt[k] += tail_entry<T, N>(i, acc[k][q], L, e, w);
-      else if (i == NE)
-        gdt[k] += acc[k][q];
+      // 1. rhs (in double, once) and the jerk form
+      for (int k = 0; k < KR; ++k)
+        for (int i = tm.member(k); i < NE; i += G)
+          L.rhs[i] = double(rhs_entry<T, N, S>(i, L, e));
+      tm.sync();
+      double en[KR], fr[KR];
+      Acc<T> ac[KR];
+      for (int k = 0; k < KR; ++k) {
+        en[k] = 0.0;
+        fr[k] = 0.0;
+        for (int i = tm.member(k); i < NE; i += G)
+          en[k] += jerk_entry<T, N>(i, L);
+        ac[k].p = L.acc + tm.member(k);
+        ac[k].stride = G;
+        for (int i = 0; i < kAcc; ++i) ac[k][i] = T(0);
+      }
+
+      // 2.-3. rows; the near pairs packed into the ring and run G at a
+      // time (the last step, with no rows, drains the ring). One call site
+      // of the dual pass keeps one copy of its code in the kernel.
+      constexpr int cap = 2 * G;
+      int head = 0, tail = 0;
+      const int J = (L.R + G - 1) / G;
+      for (int j = 0; j <= J; ++j) {
+        const bool drain = j == J;
+        RowOut<T> ro[KR];
+        for (int k = 0; k < KR; ++k)
+          ro[k] = row_pass<T, N, S>(drain ? L.R : tm.member(k) + G * j, L, e,
+                                 w, ac[k], fr[k]);
+        for (int o = 0; o < L.O; ++o) {
+          bool fl[KR];
+          for (int k = 0; k < KR; ++k) fl[k] = ((ro[k].near >> o) & 1u) != 0u;
+          const unsigned mask = tm.ballot(fl);
+          for (int k = 0; k < KR; ++k)
+            if (fl[k]) {
+              NearPair<T> q = ro[k].p;
+              q.o = o;
+              const unsigned below = (1u << tm.member(k)) - 1u;
+              L.ring[(tail + popc(mask & below)) % cap] = q;
+            }
+          tail += popc(mask);
+          const int n = tail - head;
+          if (n >= G || (drain && o == L.O - 1 && n > 0)) {
+            tm.sync();
+            for (int k = 0; k < KR; ++k)
+              if (tm.member(k) < n)
+                dual_pass<T, N, S>(L.ring[(head + tm.member(k)) % cap], L, e,
+                                   w, ac[k], fr[k]);
+            head += n < G ? n : G;
+            tm.sync();
+          }
+        }
+      }
+
+      // 4. combine, then back through the jerk form and _pre
+      T acc[KR][kAcc];
+      for (int k = 0; k < KR; ++k)
+        for (int i = 0; i < kAcc; ++i) acc[k][i] = ac[k][i];
+      tm.reduce_scatter(acc);
+      const double energy = tm.sum(en);
+      const double f_rows = tm.sum(fr);
+      T gdt[KR], gtt[KR];
+      for (int k = 0; k < KR; ++k) {
+        gdt[k] = T(0);
+        gtt[k] = T(0);
+        for (int q = 0; q < per; ++q) {
+          const int i = tm.member(k) * per + q;
+          if (i < NE)
+            gdt[k] += tail_entry<T, N, S>(i, acc[k][q], L, e, w);
+          else if (i == NE)
+            gdt[k] += acc[k][q];
+          else if (i == NE + 1)
+            gtt[k] += acc[k][q];
+        }
+      }
+      T g_dT = tm.sum(gdt);
+      if (S > 1) g_tt = tm.sum(gtt);
+      const T jerk = T(energy * double(e.i5));
+      f += (double(jerk) + double(w.wei_time * e.Ttot)) + f_rows;
+      g_dT -= T(5) * jerk * e.invdT;
+      g_T = w.wei_time + g_dT / T(ns);
+      if (S > 1) tm.sync();                      // gb before member 0 reads
     }
+    // the segment's duration: its own terms and the later segments'
+    // obstacle times; then its junction rows into the gear variables
+    const T dTdvt =
+        e.vt > T(0) ? e.vt + T(1) : -(e.vt - T(1)) / (e.qneg * e.qneg);
+    for (int k = 0; k < KR; ++k)
+      if (tm.member(k) == 0) {
+        if (S == 1) {
+          L.g[NIN] = w.cost_scale * (g_T * dTdvt * sigma);
+          for (int i = NIN + 1; i < DP; ++i) L.g[i] = T(0);
+        } else {
+          L.g[NIN + s] = w.cost_scale * ((g_T + g_tt_after) * dTdvt * sigma);
+        }
+        if (S > 1 && on) {
+          const T cs = w.cost_scale, nsv = w.non_sinv;
+          if (s > 0 && L.lm[S + s] > T(0.5)) {         // head of segment s
+            const int j = s - 1;
+            const T ga = L.x[NIN + S + 2 * (S - 1) + j];
+            L.g[NIN + S + 2 * j] += cs * L.gb[0];
+            L.g[NIN + S + 2 * j + 1] += cs * L.gb[1];
+            L.g[NIN + S + 2 * (S - 1) + j] +=
+                cs * (nsv * (L.gb[2] * m_sin(ga) - L.gb[3] * m_cos(ga)));
+          }
+          if (s < S - 1 && L.lm[S + s + 1] > T(0.5)) {  // tail of segment s
+            const int j = s;
+            const T ga = L.x[NIN + S + 2 * (S - 1) + j];
+            L.g[NIN + S + 2 * j] += cs * L.gb[4];
+            L.g[NIN + S + 2 * j + 1] += cs * L.gb[5];
+            L.g[NIN + S + 2 * (S - 1) + j] +=
+                cs * (nsv * (L.gb[7] * m_cos(ga) - L.gb[6] * m_sin(ga)));
+          }
+        }
+      }
+    g_tt_after = g_tt_after + g_tt;
+    tm.sync();
   }
-  T g_dT = tm.sum(gdt);
-  const T jerk = T(energy * double(e.i5));
-  const T f = T((double(jerk) + double(w.wei_time * e.Ttot)) + f_rows);
-  g_dT -= T(5) * jerk * e.invdT;
-  const T g_T = w.wei_time + g_dT / T(N);
-  const T dTdvt =
-      e.vt > T(0) ? e.vt + T(1) : -(e.vt - T(1)) / (e.qneg * e.qneg);
-  for (int k = 0; k < KR; ++k)
-    if (tm.member(k) == 0) {
-      L.g[NIN] = w.cost_scale * (g_T * dTdvt * w.sigma);
-      for (int i = NIN + 1; i < DP; ++i) L.g[i] = T(0);
-    }
-  tm.sync();
-  return w.cost_scale * f;
+  return w.cost_scale * T(f);
 }
 
 }  // namespace dftpav

@@ -14,11 +14,19 @@
 // the gradient partials a reduce-scatter, so every member holds bitwise
 // identical totals and takes identical solver decisions. The solver state
 // leaves the registers: member m holds decision coordinate m % 16 of the
-// iterate, gradient, direction and trial point; the m = 16 history pairs,
-// the evaluated point, the rhs (in double), the lane's obstacle
-// coefficients, the near-pair ring and the members' gradient partials sit
-// in the warp's slice of shared memory, beside the block's copy of the
-// sample maps (float and double), the jerk form and the quadrature rows.
+// iterate, gradient, direction and trial point (m and m + 32 for the
+// multi-gear classes, whose decision vectors have 40 or 56 rows); the
+// m = 16 history pairs, the evaluated point, the rhs (in double), the
+// lane's obstacle coefficients, the near-pair ring and the members'
+// gradient partials sit in the warp's slice of shared memory, beside the
+// block's copy of the sample maps (float and double), the jerk form and
+// the quadrature rows: one copy per distinct piece count of the class's
+// segments, each holding only its weighted rows.
+//
+// Both kernels are templates on the number of gear segments S (1, 2 or 3,
+// the decision length following it); the piece counts, rows and sigmas of
+// the segments are read at run time from the weight vector, so that every
+// class with the same S runs the same code.
 //
 // Kernel B runs a persistent grid: as many blocks as fit on the card (the
 // occupancy API; 16 warps each, fewer where a class's shared memory needs
@@ -56,11 +64,9 @@ using namespace dftpav;
 
 namespace {
 
-constexpr int kN = 8;        // pieces per segment of the ported class
+constexpr int kN = 8;        // pieces per segment (N) of the ported classes
 constexpr int kMaxWarps = 16;  // warps (lanes in flight) per block, at most
 constexpr int kMaxThreads = 32 * kMaxWarps;
-typedef KDims<kN> Dm;
-typedef WarpTeam<Dm::DP> Team;
 
 struct Args {
   const float *x, *f0, *g0;
@@ -69,61 +75,123 @@ struct Args {
   float *x_out, *f_out, *g_out;
   int* info;
   int* queue;        // kernel B's lane counter, zero at launch
-  float* planes;     // kernel B's lane-major half-planes [B][5 H][R]
-  int B, R, H, O, Po;
+  float* planes;     // kernel B's lane-major half-planes [B][5 H][S R]
+  int B, R, H, O, Po, S;
 };
 
-// Byte offsets in shared memory: the class constants once per block, then
-// one slice per warp.
+// Byte offsets in shared memory: the class constants once per block (per
+// segment; segments with equal piece counts share theirs), then one slice
+// per warp.
 struct Layout {
-  size_t pd, p, q, gridc, warp0, slice;
-  size_t rhs, qr, x, g, bnd, hs, hy, ys, alpha, pf, ol, ring, acc, obs;
+  size_t pd[kMaxS], p[kMaxS], q[kMaxS], gridc[kMaxS], warp0, slice;
+  size_t rhs, qr, x, g, bnd, lm, sb, gb, hs, hy, ys, alpha, pf, ol, ring,
+      acc, obs;
 };
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-__host__ __device__ inline Layout layout(int R, int O, int Po) {
-  const size_t C = Dm::C, DP = Dm::DP;
+// The first segment with segment s's piece count (whose constants s uses).
+__host__ __device__ inline int slot_of(const KW<float>& w, int s) {
+  int j = 0;
+  while (w.ns[j] != w.ns[s]) ++j;
+  return j;
+}
+
+template <int S>
+__host__ __device__ inline Layout layout(const KW<float>& w, int O, int Po) {
+  const size_t C = kN + 5, DP = KDims<kN, S>::DP;
   Layout l;
-  l.pd = 0;
-  l.p = l.pd + 8 * 3 * R * C;
-  l.q = l.p + 4 * 3 * R * C;
-  l.gridc = l.q + 4 * C * C;
-  l.warp0 = up16(l.gridc + 4 * 2 * (size_t)R);
   size_t o = 0;
+  if constexpr (S == 1) {        // one segment: all R rows, one flat copy
+    const size_t R = (size_t)w.rs[0];
+    l.pd[0] = 0;
+    l.p[0] = l.pd[0] + 8 * 3 * R * C;
+    l.q[0] = l.p[0] + 4 * 3 * R * C;
+    l.gridc[0] = l.q[0] + 4 * C * C;
+    o = up16(l.gridc[0] + 4 * 2 * R);
+  } else {
+    for (int s = 0; s < S; ++s) {
+      const int j = slot_of(w, s);
+      if (j < s) {
+        l.pd[s] = l.pd[j]; l.p[s] = l.p[j]; l.q[s] = l.q[j];
+        l.gridc[s] = l.gridc[j];
+        continue;
+      }
+      const size_t rs = (size_t)w.rs[s];
+      l.pd[s] = o;    o += 8 * 3 * rs * C;
+      l.p[s] = o;     o += 4 * 3 * rs * C;
+      l.q[s] = o;     o += 4 * C * C;
+      l.gridc[s] = o; o += 4 * 2 * rs;
+      o = up16(o);
+    }
+  }
+  l.warp0 = o;
+  o = 0;
   l.rhs = o;   o += 8 * 2 * C;
   l.qr = o;    o += 4 * 2 * C;
   l.x = o;     o += 4 * DP;
   l.g = o;     o += 4 * DP;
-  l.bnd = o;   o += 4 * 12;
+  l.bnd = o;   o += 4 * 12 * S;
+  l.lm = o;    o += 4 * 2 * S;
+  l.sb = o;    o += S > 1 ? 4 * 12 : 0;   // junction rows: multi-gear only
+  l.gb = o;    o += S > 1 ? 4 * 8 : 0;
   l.hs = o;    o += 4 * kMem * DP;
   l.hy = o;    o += 4 * kMem * DP;
   l.ys = o;    o += 4 * kMem;
   l.alpha = o; o += 4 * kMem;
   l.pf = o;    o += 4 * kMaxPast;
   l.ol = o;    o += sizeof(ObsLane<float>) * (size_t)O;
-  l.ring = o;  o += sizeof(NearPair<float>) * 2 * Team::G;
-  l.acc = o;   o += 4 * kAcc * Team::G;
+  l.ring = o;  o += sizeof(NearPair<float>) * 2 * 32;
+  l.acc = o;   o += 4 * kAcc * 32;
   l.obs = o;   o += 4 * 12 * (size_t)O * Po;
   l.slice = up16(o);
   return l;
 }
 
-__device__ void stage_consts(const Args& a, unsigned char* sm,
-                             const Layout& l) {
-  const int C = Dm::C;
-  const int nP = 3 * a.R * C, nQ = C * C, nG = 2 * a.R;
-  double* Pd = (double*)(sm + l.pd);
-  float* P = (float*)(sm + l.p);
-  float* Q = (float*)(sm + l.q);
-  float* gridc = (float*)(sm + l.gridc);
-  for (int i = threadIdx.x; i < nP; i += blockDim.x) {
-    const float v = a.P[i];
-    P[i] = v;
-    Pd[i] = double(v);
+// Copies each distinct segment's constants (its first rs rows of the
+// [S][3][R][C] maps, [S][2][R] quadrature rows, [S][C][C] jerk form) into
+// the block's shared memory.
+template <int S>
+__device__ void stage_consts(const Args& a, const KW<float>& w,
+                             unsigned char* sm, const Layout& l) {
+  const int C = kN + 5, R = a.R;
+  if constexpr (S == 1) {        // all R rows (w.rs[0] == R)
+    const int nP = 3 * R * C, nQ = C * C, nG = 2 * R;
+    double* Pd = (double*)(sm + l.pd[0]);
+    float* P = (float*)(sm + l.p[0]);
+    float* Q = (float*)(sm + l.q[0]);
+    float* gridc = (float*)(sm + l.gridc[0]);
+    for (int i = threadIdx.x; i < nP; i += blockDim.x) {
+      const float v = a.P[i];
+      P[i] = v;
+      Pd[i] = double(v);
+    }
+    for (int i = threadIdx.x; i < nQ; i += blockDim.x) Q[i] = a.Q[i];
+    for (int i = threadIdx.x; i < nG; i += blockDim.x) gridc[i] = a.gridc[i];
+    __syncthreads();
+    return;
   }
-  for (int i = threadIdx.x; i < nQ; i += blockDim.x) Q[i] = a.Q[i];
-  for (int i = threadIdx.x; i < nG; i += blockDim.x) gridc[i] = a.gridc[i];
+  for (int s = 0; s < S; ++s) {
+    if (slot_of(w, s) < s) continue;
+    const int rs = w.rs[s];
+    for (int o = 0; o < 3; ++o) {
+      double* Pd = (double*)(sm + l.pd[s]) + (size_t)o * rs * C;
+      float* P = (float*)(sm + l.p[s]) + (size_t)o * rs * C;
+      const float* src = a.P + ((size_t)s * 3 + o) * R * C;
+      for (int i = threadIdx.x; i < rs * C; i += blockDim.x) {
+        P[i] = src[i];
+        Pd[i] = double(src[i]);
+      }
+    }
+    float* Q = (float*)(sm + l.q[s]);
+    for (int i = threadIdx.x; i < C * C; i += blockDim.x)
+      Q[i] = a.Q[(size_t)s * C * C + i];
+    for (int o = 0; o < 2; ++o) {
+      float* gridc = (float*)(sm + l.gridc[s]) + (size_t)o * rs;
+      const float* src = a.gridc + ((size_t)s * 2 + o) * R;
+      for (int i = threadIdx.x; i < rs; i += blockDim.x) gridc[i] = src[i];
+    }
+  }
   __syncthreads();
 }
 
@@ -132,26 +200,45 @@ struct Slice {
   LaneData<float> L;
   SolverMem<float> M;
   float* bnd;
+  float* lm;
   float* obs;
   ObsLane<float>* ol;
 };
 
+template <int S>
 __device__ Slice slice_of(const Args& a, unsigned char* sm, const Layout& l,
                           int wid) {
   unsigned char* w = sm + l.warp0 + (size_t)wid * l.slice;
   Slice s;
   s.bnd = (float*)(w + l.bnd);
+  s.lm = (float*)(w + l.lm);
   s.obs = (float*)(w + l.obs);
   s.ol = (ObsLane<float>*)(w + l.ol);
   LaneData<float>& L = s.L;
-  L.Pd = (const double*)(sm + l.pd);
-  L.P = (const float*)(sm + l.p);
-  L.Q = (const float*)(sm + l.q);
-  L.gridc = (const float*)(sm + l.gridc);
-  L.R = a.R; L.H = a.H; L.O = a.O; L.Po = a.Po;
-  L.sgl = 0.f;
+  if constexpr (S == 1) {
+    // one segment: its constants and boundary rows, once (its rows of the
+    // slabs are selected per lane)
+    L.s = 0;
+    L.ns = kN;
+    L.Pd = (const double*)(sm + l.pd[0]);
+    L.P = (const float*)(sm + l.p[0]);
+    L.Q = (const float*)(sm + l.q[0]);
+    L.gridc = (const float*)(sm + l.gridc[0]);
+    L.R = a.R;
+    L.bnd = s.bnd;
+  } else {
+    for (int j = 0; j < S; ++j) {
+      L.Pds[j] = (const double*)(sm + l.pd[j]);
+      L.Ps[j] = (const float*)(sm + l.p[j]);
+      L.Qs[j] = (const float*)(sm + l.q[j]);
+      L.gridcs[j] = (const float*)(sm + l.gridc[j]);
+    }
+  }
+  L.H = a.H; L.O = a.O; L.Po = a.Po;
+  L.seg_rows = a.R;
   L.plane_row = 0;
-  L.bnd = s.bnd;
+  L.bnd_lane = s.bnd;
+  L.lm = s.lm;
   L.obs = s.obs;
   L.ol = s.ol;
   L.x = (float*)(w + l.x);
@@ -160,6 +247,8 @@ __device__ Slice slice_of(const Args& a, unsigned char* sm, const Layout& l,
   L.qr = (float*)(w + l.qr);
   L.ring = (NearPair<float>*)(w + l.ring);
   L.acc = (float*)(w + l.acc);
+  L.sb = (float*)(w + l.sb);
+  L.gb = (float*)(w + l.gb);
   s.M.s = (float*)(w + l.hs);
   s.M.y = (float*)(w + l.hy);
   s.M.ys = (float*)(w + l.ys);
@@ -172,62 +261,73 @@ __device__ Slabs<float> slabs_of(const Args& a) {
   Slabs<float> s;
   s.bnd = a.bnd; s.misc = a.misc; s.cn = a.cn; s.cp = a.cp; s.cm = a.cm;
   s.obs = a.obs; s.B = a.B; s.R = a.R; s.H = a.H; s.O = a.O; s.Po = a.Po;
+  s.S = a.S;
   return s;
 }
 
+template <int S>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     eval_fg_kernel(Args a, KW<float> w) {
+  constexpr int DP = KDims<kN, S>::DP;
   extern __shared__ __align__(16) unsigned char sm[];
-  const Layout l = layout(a.R, a.O, a.Po);
-  stage_consts(a, sm, l);
+  const Layout l = layout<S>(w, a.O, a.Po);
+  stage_consts<S>(a, w, sm, l);
   const int wid = threadIdx.x >> 5;
-  Team tm;
+  WarpTeam<DP> tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of(a, sm, l, wid);
+  Slice s = slice_of<S>(a, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
-  const int c = tm.coord(0);
   const int nw = blockDim.x >> 5;
   for (int lane = blockIdx.x * nw + wid; lane < a.B;
        lane += gridDim.x * nw) {
-    stage_lane(tm, sl, lane, s.bnd, s.obs, s.ol);
-    s.L.sgl = a.misc[lane];
-    s.L.planes = planes_slab(sl, lane);
+    stage_lane<S>(tm, sl, lane, s.bnd, s.lm, s.obs, s.ol);
+    s.L.planes_lane = planes_slab(sl, lane);
     s.L.plane_row = (size_t)a.B;
-    s.L.x[c] = a.x[(size_t)c * a.B + lane];
+    if (S == 1) select_rows(s.L, 0);
+    for (int i = tm.m; i < DP; i += 32) s.L.x[i] = a.x[(size_t)i * a.B + lane];
     tm.sync();
-    const float f = lane_eval<float, kN>(tm, s.L, w);
-    if (tm.m < Dm::DP) a.g_out[(size_t)tm.m * a.B + lane] = s.L.g[tm.m];
+    const float f = lane_eval<float, kN, S>(tm, s.L, w);
+    for (int i = tm.m; i < DP; i += 32)
+      a.g_out[(size_t)i * a.B + lane] = s.L.g[i];
     if (tm.m == 0) a.f_out[lane] = f;
     tm.sync();
   }
 }
 
+template <int S>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     solve_kernel(Args a, KW<float> w, LP<float> p) {
+  constexpr int DP = KDims<kN, S>::DP;
+  typedef WarpTeam<DP> Team;
+  constexpr int V = Team::kVec;
   extern __shared__ __align__(16) unsigned char sm[];
-  const Layout l = layout(a.R, a.O, a.Po);
-  stage_consts(a, sm, l);
+  const Layout l = layout<S>(w, a.O, a.Po);
+  stage_consts<S>(a, w, sm, l);
   const int wid = threadIdx.x >> 5;
   Team tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of(a, sm, l, wid);
+  Slice s = slice_of<S>(a, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
-  const int c = tm.coord(0);
   for (;;) {
     int lane = 0;
     if (tm.m == 0) lane = atomicAdd(a.queue, 1);
     lane = __shfl_sync(0xffffffffu, lane, 0);
     if (lane >= a.B) break;
-    stage_lane(tm, sl, lane, s.bnd, s.obs, s.ol);
-    s.L.sgl = a.misc[lane];
-    s.L.planes = planes_lane_major((const float*)a.planes, lane, a.H, a.R);
+    stage_lane<S>(tm, sl, lane, s.bnd, s.lm, s.obs, s.ol);
+    s.L.planes_lane = planes_lane_major((const float*)a.planes, lane, a.H,
+                                   a.S * a.R);
     s.L.plane_row = 1;
-    const float x0 = a.x[(size_t)c * a.B + lane];
-    const float g0 = a.g0[(size_t)c * a.B + lane];
-    float xo, fo;
-    const SolveOut o = lane_solve<float, kN>(tm, s.L, w, p, s.M, &x0,
-                                             a.f0[lane], &g0, &xo, &fo);
-    if (tm.m < Dm::DP) a.x_out[(size_t)tm.m * a.B + lane] = xo;
+    if (S == 1) select_rows(s.L, 0);
+    float x0[V], g0[V], xo[V], fo;
+    for (int k = 0; k < V; ++k) {
+      const size_t c = (size_t)tm.coord(k);
+      x0[k] = tm.valid(k) ? a.x[c * a.B + lane] : 0.f;
+      g0[k] = tm.valid(k) ? a.g0[c * a.B + lane] : 0.f;
+    }
+    const SolveOut o = lane_solve<float, kN, S>(tm, s.L, w, p, s.M, x0,
+                                                a.f0[lane], g0, xo, &fo);
+    for (int k = 0; k < V; ++k)
+      if (tm.owner(k)) a.x_out[(size_t)tm.coord(k) * a.B + lane] = xo[k];
     if (tm.m == 0) {
       a.f_out[lane] = fo;
       a.info[lane] = o.status;
@@ -242,31 +342,31 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 __global__ void lane_major_kernel(Args a) {
   __shared__ float tile[32][33];
   const Slabs<float> sl = slabs_of(a);
-  const int q = blockIdx.z;
+  const int q = blockIdx.z, RS = a.S * a.R;
   const float* src = lane_major_src(sl, q);
   const int b0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
     const int r = r0 + i, b = b0 + threadIdx.x;
-    if (r < a.R && b < a.B) tile[i][threadIdx.x] = src[(size_t)r * a.B + b];
+    if (r < RS && b < a.B) tile[i][threadIdx.x] = src[(size_t)r * a.B + b];
   }
   __syncthreads();
   const size_t nq = 5 * (size_t)a.H;
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
     const int b = b0 + i, r = r0 + threadIdx.x;
-    if (b < a.B && r < a.R)
-      a.planes[((size_t)b * nq + q) * a.R + r] = tile[threadIdx.x][i];
+    if (b < a.B && r < RS)
+      a.planes[((size_t)b * nq + q) * RS + r] = tile[threadIdx.x][i];
   }
 }
 
-// A persistent launch for the class (R rows, O obstacles of Po pieces):
-// warps per block (kMaxWarps, or as many as fit in the card's shared
-// memory per block), the shared memory, blocks per SM and in all.
+// A persistent launch for the class: warps per block (kMaxWarps, or as
+// many as fit in the card's shared memory per block), the shared memory,
+// blocks per SM and in all.
 struct Plan {
   int warps, smem, per_sm, blocks;
 };
 
-template <class K>
-cudaError_t plan(K kernel, int R, int O, int Po, Plan* pl) {
+template <int S, class K>
+cudaError_t plan(K kernel, const KW<float>& w, int O, int Po, Plan* pl) {
   int dev = 0, sms = 0, max_smem = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -275,7 +375,7 @@ cudaError_t plan(K kernel, int R, int O, int Po, Plan* pl) {
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const Layout l = layout(R, O, Po);
+  const Layout l = layout<S>(w, O, Po);
   int nw = kMaxWarps;
   while (nw > 0 && l.warp0 + nw * l.slice > (size_t)max_smem) --nw;
   if (nw == 0) return cudaErrorInvalidConfiguration;
@@ -295,16 +395,16 @@ cudaError_t plan(K kernel, int R, int O, int Po, Plan* pl) {
 }
 
 // Launches `kernel` on a persistent grid: every block that fits, at most
-// one warp per lane; `params` are its arguments after Args.
-template <class K, class... Params>
-cudaError_t launch(K kernel, const Args& a, cudaStream_t stream,
-                   const Params&... params) {
+// one warp per lane; `params` are its arguments after Args and KW.
+template <int S, class K, class... Params>
+cudaError_t launch(K kernel, const Args& a, const KW<float>& w,
+                   cudaStream_t stream, const Params&... params) {
   Plan pl;
-  const cudaError_t err = plan(kernel, a.R, a.O, a.Po, &pl);
+  const cudaError_t err = plan<S>(kernel, w, a.O, a.Po, &pl);
   if (err != cudaSuccess) return err;
   const int need = (a.B + pl.warps - 1) / pl.warps;
   const int blocks = pl.blocks < need ? pl.blocks : need;
-  kernel<<<blocks, 32 * pl.warps, pl.smem, stream>>>(a, params...);
+  kernel<<<blocks, 32 * pl.warps, pl.smem, stream>>>(a, w, params...);
   return cudaGetLastError();
 }
 
@@ -312,24 +412,40 @@ Args make_args(const float* x, const float* f0, const float* g0,
                const float* bnd, const float* misc, const float* cn,
                const float* cp, const float* cm, const float* obs,
                const float* P, const float* Q, const float* gridc, int B,
-               int R, int H, int O, int Po) {
+               int R, int H, int O, int Po, int S) {
   Args a;
   a.x = x; a.f0 = f0; a.g0 = g0; a.bnd = bnd; a.misc = misc; a.cn = cn;
   a.cp = cp; a.cm = cm; a.obs = obs; a.P = P; a.Q = Q; a.gridc = gridc;
   a.x_out = nullptr; a.f_out = nullptr; a.g_out = nullptr; a.info = nullptr;
   a.queue = nullptr; a.planes = nullptr;
-  a.B = B; a.R = R; a.H = H; a.O = O; a.Po = Po;
+  a.B = B; a.R = R; a.H = H; a.O = O; a.Po = Po; a.S = S;
   return a;
+}
+
+// Whether the class in the weight vector is one the kernels take.
+bool class_ok(const KW<float>& w, int R) {
+  if (w.nseg < 1 || w.nseg > kMaxS || (w.nseg == 1 && w.rs[0] != R))
+    return false;
+  for (int s = 0; s < w.nseg; ++s)
+    if (w.ns[s] < 2 || w.ns[s] > kN || kN % w.ns[s] != 0 || w.rs[s] < 1 ||
+        w.rs[s] > R)
+      return false;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Compile-time class of this build: pieces per segment and padded decision
-// rows. The wrapper checks both before launching.
+// Compile-time class of this build: pieces per segment, the most gear
+// segments, and padded decision rows for S segments. The wrapper checks
+// them before launching.
 int dftpav_kernel_n() { return kN; }
-int dftpav_kernel_dp() { return Dm::DP; }
+int dftpav_kernel_max_s() { return kMaxS; }
+int dftpav_kernel_dp(int S) {
+  return S == 1 ? KDims<kN, 1>::DP
+                : (S == 2 ? KDims<kN, 2>::DP : KDims<kN, 3>::DP);
+}
 int dftpav_weight_len() { return W_LEN; }
 int dftpav_lbfgs_len() { return L_LEN; }
 int dftpav_max_h() { return kMaxH; }
@@ -339,19 +455,28 @@ const char* dftpav_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// What kernel `which` (0: A, 1: B) gets on this card for R rows, O
-// obstacles of Po pieces: out[0] registers per thread, out[1] local memory
-// per thread (bytes: spills and stack), out[2] resident warps per SM,
-// out[3] blocks of the persistent grid, out[4] shared memory per block.
-int dftpav_kernel_info(int which, int R, int O, int Po, int* out) {
+// What kernel `which` (0: A, 1: B) gets on this card for the class of the
+// weight vector wts (W_LEN floats), R rows per segment, O obstacles of Po
+// pieces: out[0] registers per thread, out[1] local memory per thread
+// (bytes: spills and stack), out[2] resident warps per SM, out[3] blocks of
+// the persistent grid, out[4] shared memory per block.
+int dftpav_kernel_info(int which, const float* wts, int R, int O, int Po,
+                       int* out) {
+  const KW<float> w = make_kw<float>(wts);
+  if (!class_ok(w, R)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
-  const void* k = which == 0 ? (const void*)eval_fg_kernel
-                             : (const void*)solve_kernel;
-  cudaError_t err = cudaFuncGetAttributes(&fa, k);
-  if (err != cudaSuccess) return (int)err;
   Plan pl;
-  err = which == 0 ? plan(eval_fg_kernel, R, O, Po, &pl)
-                   : plan(solve_kernel, R, O, Po, &pl);
+  cudaError_t err = cudaErrorInvalidValue;
+#define DFT_INFO(S_)                                                     \
+  if (w.nseg == S_) {                                                    \
+    err = which == 0 ? cudaFuncGetAttributes(&fa, eval_fg_kernel<S_>)    \
+                     : cudaFuncGetAttributes(&fa, solve_kernel<S_>);     \
+    if (err != cudaSuccess) return (int)err;                             \
+    err = which == 0 ? plan<S_>(eval_fg_kernel<S_>, w, O, Po, &pl)       \
+                     : plan<S_>(solve_kernel<S_>, w, O, Po, &pl);        \
+  }
+  DFT_INFO(1) else DFT_INFO(2) else DFT_INFO(3)
+#undef DFT_INFO
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
@@ -361,26 +486,32 @@ int dftpav_kernel_info(int which, int R, int O, int Po, int* out) {
   return 0;
 }
 
-// x [DP, B] -> f [B], g [DP, B]. wts: host vector of W_LEN floats.
+// x [DP, B] -> f [B], g [DP, B]. wts: host vector of W_LEN floats, the
+// class (S, n_s, rows) included; P [S][3][R][C], Q [S][C][C], gridc
+// [S][2][R]; the corridor slabs have S R rows.
 int dftpav_eval_fg(const float* x, const float* bnd, const float* misc,
                    const float* cn, const float* cp, const float* cm,
                    const float* obs, const float* P, const float* Q,
                    const float* gridc, const float* wts, int B, int R, int H,
                    int O, int Po, float* f_out, float* g_out, void* stream) {
-  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0)
+  const KW<float> w = make_kw<float>(wts);
+  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0 ||
+      !class_ok(w, R))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(x, nullptr, nullptr, bnd, misc, cn, cp, cm, obs, P, Q,
-                     gridc, B, R, H, O, Po);
+                     gridc, B, R, H, O, Po, w.nseg);
   a.f_out = f_out;
   a.g_out = g_out;
-  return (int)launch(eval_fg_kernel, a, (cudaStream_t)stream,
-                     make_kw<float>(wts));
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (w.nseg == 1) return (int)launch<1>(eval_fg_kernel<1>, a, w, st);
+  if (w.nseg == 2) return (int)launch<2>(eval_fg_kernel<2>, a, w, st);
+  return (int)launch<3>(eval_fg_kernel<3>, a, w, st);
 }
 
 // Whole solve from (x0 [DP, B], f0 [B], g0 [DP, B]) -> x_out [DP, B],
 // f_out [B], info [3, B] int32 = status, k clamped to max_iter, n_evals.
 // wts: W_LEN floats; lbp: L_LEN floats (host vectors). queue: one int32,
-// zero; planes: scratch of B * 5 H * R floats.
+// zero; planes: scratch of B * 5 H * S R floats.
 int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
                        const float* bnd, const float* misc, const float* cn,
                        const float* cp, const float* cm, const float* obs,
@@ -389,10 +520,12 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
                        int max_ls, int past, int adaptive, int B, int R,
                        int H, int O, int Po, float* x_out, float* f_out,
                        int* info, int* queue, float* planes, void* stream) {
-  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0)
+  const KW<float> w = make_kw<float>(wts);
+  if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0 ||
+      !class_ok(w, R))
     return (int)cudaErrorInvalidValue;
   Args a = make_args(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q, gridc, B,
-                     R, H, O, Po);
+                     R, H, O, Po, w.nseg);
   a.x_out = x_out;
   a.f_out = f_out;
   a.info = info;
@@ -400,13 +533,15 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
   a.planes = planes;
   const cudaStream_t st = (cudaStream_t)stream;
   if (H > 0) {
-    const dim3 grid((B + 31) / 32, (R + 31) / 32, 5 * H);
+    const dim3 grid((B + 31) / 32, (w.nseg * R + 31) / 32, 5 * H);
     lane_major_kernel<<<grid, dim3(32, 8), 0, st>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)launch(solve_kernel, a, st, make_kw<float>(wts),
-                     make_lp<float>(lbp, max_iter, max_ls, past, adaptive));
+  const LP<float> lp = make_lp<float>(lbp, max_iter, max_ls, past, adaptive);
+  if (w.nseg == 1) return (int)launch<1>(solve_kernel<1>, a, w, st, lp);
+  if (w.nseg == 2) return (int)launch<2>(solve_kernel<2>, a, w, st, lp);
+  return (int)launch<3>(solve_kernel<3>, a, w, st, lp);
 }
 
 }  // extern "C"

@@ -14,8 +14,9 @@
 // the TPU carried floats for Mosaic. The history is a ring indexed newest
 // first, where the TPU shifted a tuple of 16 arrays. The solver runs on a
 // team (team.cuh): on the card the lane's warp, each thread holding one
-// decision coordinate of every vector in registers, the history and the
-// evaluated point in shared memory.
+// decision coordinate of every vector in registers (two or more above 32
+// coordinates, the multi-gear classes), the history and the evaluated point
+// in shared memory.
 #pragma once
 
 #include "kcost.cuh"
@@ -93,17 +94,22 @@ DFT_HD T tmaxabs(const Team& tm, const T* a) {
 
 // Solve the lane whose data L holds, from x0 with its objective value f0
 // and gradient g0 already evaluated (kernel A); x0, g0 and x_out are this
-// object's coordinates of the vectors (coordinate tm.coord(k) at k).
+// object's coordinates of the vectors (coordinate tm.coord(k) at k; those
+// with !tm.valid(k), past DP, are 0 and stay 0).
 // Writes the final base point to x_out and its objective to *f_out.
 // Returns status, k clamped to max_iter, evaluations. Every team-reduced
 // value is bitwise identical on all members, so all members take the same
 // branches.
-template <class T, int N, class Team>
-DFT_HD SolveOut lane_solve(const Team& tm, const LaneData<T>& L,
+template <class T, int N, int S, class Team>
+DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
                            const KW<T>& w, const LP<T>& p,
                            const SolverMem<T>& M, const T* x0, T f0,
                            const T* g0, T* x_out, T* f_out) {
-  constexpr int DP = KDims<N>::DP, V = Team::kVec;
+  constexpr int DP = KDims<N, S>::DP, V = Team::kVec;
+  // a coordinate of a vector in the scratch (0 past DP)
+  auto ld = [&](const T* a, int c) {
+    return tm.valid(c) ? a[tm.coord(c)] : T(0);
+  };
   T xp[V], gp[V], d[V], xt[V], gt[V];
   const int past = p.past > 1 ? p.past : 1;
   const bool use_past = p.past > 0;
@@ -129,12 +135,12 @@ DFT_HD SolveOut lane_solve(const Team& tm, const LaneData<T>& L,
   while (status == ST_RUNNING) {
     for (int c = 0; c < V; ++c) {
       xt[c] = xp[c] + stp * d[c];
-      L.x[tm.coord(c)] = xt[c];
+      if (tm.valid(c)) L.x[tm.coord(c)] = xt[c];
     }
     tm.sync();
-    const T ft = lane_eval<T, N>(tm, L, w);
+    const T ft = lane_eval<T, N, S>(tm, L, w);
     ++n_evals;
-    for (int c = 0; c < V; ++c) gt[c] = L.g[tm.coord(c)];
+    for (int c = 0; c < V; ++c) gt[c] = ld(L.g, c);
 
     // Lewis-Overton decision
     const T dg = tdot(tm, gt, d);
@@ -193,10 +199,11 @@ DFT_HD SolveOut lane_solve(const Team& tm, const LaneData<T>& L,
       const bool do_up = running && ys > cau;
       if (do_up) {
         head = (head + kMem - 1) % kMem;
-        for (int c = 0; c < V; ++c) {
-          M.s[head * DP + tm.coord(c)] = s[c];
-          M.y[head * DP + tm.coord(c)] = y[c];
-        }
+        for (int c = 0; c < V; ++c)
+          if (tm.valid(c)) {
+            M.s[head * DP + tm.coord(c)] = s[c];
+            M.y[head * DP + tm.coord(c)] = y[c];
+          }
         M.ys[head] = ys;
         bound = bound + 1 < kMem ? bound + 1 : kMem;
         // two-loop recursion, newest entry first
@@ -204,20 +211,19 @@ DFT_HD SolveOut lane_solve(const Team& tm, const LaneData<T>& L,
         for (int c = 0; c < V; ++c) d[c] = -gt[c];
         for (int j = 0; j < bound; ++j) {
           const int h = (head + j) % kMem;
-          for (int c = 0; c < V; ++c) hv[c] = M.s[h * DP + tm.coord(c)];
+          for (int c = 0; c < V; ++c) hv[c] = ld(M.s + h * DP, c);
           const T a = tdot(tm, hv, d) / M.ys[h];
-          for (int c = 0; c < V; ++c)
-            d[c] = d[c] - a * M.y[h * DP + tm.coord(c)];
+          for (int c = 0; c < V; ++c) d[c] = d[c] - a * ld(M.y + h * DP, c);
           M.alpha[j] = a;
         }
         const T scale = ys / m_max(yy, T(1e-30));
         for (int c = 0; c < V; ++c) d[c] = d[c] * scale;
         for (int j = bound - 1; j >= 0; --j) {
           const int h = (head + j) % kMem;
-          for (int c = 0; c < V; ++c) hv[c] = M.y[h * DP + tm.coord(c)];
+          for (int c = 0; c < V; ++c) hv[c] = ld(M.y + h * DP, c);
           const T b = tdot(tm, hv, d) / M.ys[h];
           for (int c = 0; c < V; ++c)
-            d[c] = d[c] + (M.alpha[j] - b) * M.s[h * DP + tm.coord(c)];
+            d[c] = d[c] + (M.alpha[j] - b) * ld(M.s + h * DP, c);
         }
       } else {
         for (int c = 0; c < V; ++c) d[c] = -gt[c];

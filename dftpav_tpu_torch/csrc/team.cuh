@@ -18,9 +18,12 @@
 //             member m holds the totals of slots m * NS / G + q at its
 //             slot q < NS / G, each summed in a fixed tree;
 //   vsum / vmax  over the DP coordinates of a solver vector; each object
-//             holds kVec of them, coordinate coord(k) at k (on the card a
-//             half warp holds the 16 coordinates, and both halves hold
-//             the same ones).
+//             holds kVec of them, coordinate coord(k) at k. On the card, at
+//             DP = 16 a half warp holds the 16 coordinates and both halves
+//             hold the same ones; above 16 (multi-gear classes) thread m
+//             holds coordinates m, m + 32, ..., valid(k) telling which are
+//             below DP (the others stay 0), and a sum adds a thread's own
+//             coordinates in that order before the butterfly over the warp.
 // sync() orders the members' scratch writes before other members' reads
 // (__syncwarp on the card).
 #pragma once
@@ -40,8 +43,10 @@ DFT_HD int popc(unsigned x) {
 template <int G_, int DP_>
 struct HostTeam {
   static constexpr int G = G_, kRun = G_, DP = DP_, kVec = DP_;
+  static_assert(G == 1 || DP == 16 || G == 32, "a team is one warp");
   int member(int k) const { return k; }
   int coord(int k) const { return k; }
+  bool valid(int) const { return true; }
   void sync() const {}
 
   template <class V>
@@ -81,7 +86,8 @@ struct HostTeam {
   }
 
   // one member: the sums in coordinate order; more: the card's butterfly
-  // over the 16 coordinates of a half warp
+  // over the 16 coordinates of a half warp, or above 16 each thread's own
+  // coordinates m, m + 32, ... and then the butterfly over the warp
   template <class T>
   T vsum(const T* v) const {
     if (G == 1) {
@@ -89,13 +95,17 @@ struct HostTeam {
       for (int i = 0; i < DP; ++i) s += v[i];
       return s;
     }
-    static_assert(G == 1 || DP == 16, "a warp team holds 16 coordinates");
-    T a[DP];
-    for (int i = 0; i < DP; ++i) a[i] = v[i];
-    for (int off = DP / 2; off > 0; off >>= 1) {
-      T b[DP];
-      for (int i = 0; i < DP; ++i) b[i] = a[i] + a[i ^ off];
-      for (int i = 0; i < DP; ++i) a[i] = b[i];
+    constexpr int W = DP == 16 ? 16 : 32;
+    T a[W];
+    for (int i = 0; i < W; ++i) {
+      a[i] = v[i];
+      for (int j = i + W; j < W * ((DP + W - 1) / W); j += W)
+        a[i] = a[i] + (j < DP ? v[j] : T(0));
+    }
+    for (int off = W / 2; off > 0; off >>= 1) {
+      T b[W];
+      for (int i = 0; i < W; ++i) b[i] = a[i] + a[i ^ off];
+      for (int i = 0; i < W; ++i) a[i] = b[i];
     }
     return a[0];
   }
@@ -109,14 +119,26 @@ struct HostTeam {
 
 #ifdef __CUDACC__
 // One warp per lane; this thread is member m, and holds coordinate m % 16
-// of every solver vector.
+// of every solver vector at DP = 16, coordinates m, m + 32, ... above.
 template <int DP_>
 struct WarpTeam {
-  static constexpr int G = 32, kRun = 1, DP = DP_, kVec = 1;
-  static_assert(DP == 16, "a half warp holds the 16 decision coordinates");
+  static constexpr int G = 32, kRun = 1, DP = DP_;
+  static constexpr bool kHalf = DP == 16;
+  static constexpr int kVec = kHalf ? 1 : (DP + 31) / 32;
+  static_assert(kHalf || DP >= 32, "DP is 16 or at least 32");
   int m;
   __device__ __forceinline__ int member(int) const { return m; }
-  __device__ __forceinline__ int coord(int) const { return m & (DP - 1); }
+  __device__ __forceinline__ int coord(int k) const {
+    return kHalf ? (m & 15) : m + 32 * k;
+  }
+  __device__ __forceinline__ bool valid(int k) const {
+    return kHalf || m + 32 * k < DP;
+  }
+  // whether this thread writes coordinate coord(k) out (one per
+  // coordinate)
+  __device__ __forceinline__ bool owner(int k) const {
+    return kHalf ? m < 16 : m + 32 * k < DP;
+  }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
 
   template <class V>
@@ -151,7 +173,9 @@ struct WarpTeam {
   __device__ __forceinline__ T vsum(const T* v) const {
     T a = v[0];
     DFT_UNROLL
-    for (int off = DP / 2; off > 0; off >>= 1)
+    for (int k = 1; k < kVec; ++k) a = a + v[k];
+    DFT_UNROLL
+    for (int off = kHalf ? 8 : 16; off > 0; off >>= 1)
       a += __shfl_xor_sync(0xffffffffu, a, off);
     return a;
   }
@@ -159,7 +183,9 @@ struct WarpTeam {
   __device__ __forceinline__ T vmax(const T* v) const {
     T a = v[0];
     DFT_UNROLL
-    for (int off = DP / 2; off > 0; off >>= 1)
+    for (int k = 1; k < kVec; ++k) a = m_max(a, v[k]);
+    DFT_UNROLL
+    for (int off = kHalf ? 8 : 16; off > 0; off >>= 1)
       a = m_max(a, __shfl_xor_sync(0xffffffffu, a, off));
     return a;
   }

@@ -65,3 +65,28 @@ def maps_as(N: int, dtype=torch.float32, device=None):
     """minco_maps(N) as tensors of `dtype` on `device`."""
     return tuple(torch.as_tensor(m, dtype=dtype, device=device)
                  for m in minco_maps(N))
+
+
+@functools.lru_cache(maxsize=None)
+def subdivision_matrix(r: int) -> np.ndarray:
+    """A [r, 6, 6]: A[i] maps a piece's normalized coefficients to those of
+    its i-th of r equal sub-pieces. p(tau) = sum_k b_k tau^k with
+    tau = (i + u) / r gives b'_m = sum_{k>=m} C(k, m) i^(k-m) r^-k b_k on
+    the local u in [0, 1] (an exact identity)."""
+    from math import comb
+    A = np.zeros((r, 6, 6))
+    for i in range(r):
+        for m in range(6):
+            for k in range(m, 6):
+                A[i, m, k] = comb(k, m) * float(i) ** (k - m) / float(r) ** k
+    return A
+
+
+def subdivide(b: torch.Tensor, r: int) -> torch.Tensor:
+    """Normalized coefficients [n, 6, 2, ...] of pieces of duration dT ->
+    [n r, 6, 2, ...] on sub-pieces of duration dT / r."""
+    if r == 1:
+        return b
+    A = torch.as_tensor(subdivision_matrix(r), dtype=b.dtype, device=b.device)
+    out = torch.einsum("imk,qk...->qim...", A, b)
+    return out.reshape(b.shape[0] * r, *b.shape[1:])

@@ -26,8 +26,10 @@ import subprocess
 
 import torch
 
+from dftpav_tpu_torch.config import resolve_vt_scale
 from dftpav_tpu_torch.ops.kcost import (KConsts, KScenario, StaticW,
-                                        bnd_rows, dp_of, misc_rows, r_rows)
+                                        bnd_rows, dp_of, misc_rows, r_rows,
+                                        seg_active)
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -131,8 +133,10 @@ def load(so):
     lib.dftpav_corridor_fwd.restype = _I
     lib.dftpav_corridor_bwd.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 4
     lib.dftpav_corridor_bwd.restype = _I
-    lib.dftpav_kernel_info.argtypes = [_I] * 4 + [_P]
+    lib.dftpav_kernel_info.argtypes = [_I, _P] + [_I] * 3 + [_P]
     lib.dftpav_kernel_info.restype = _I
+    lib.dftpav_kernel_dp.argtypes = [_I]
+    lib.dftpav_kernel_dp.restype = _I
     lib.dftpav_error_string.argtypes = [_I]
     lib.dftpav_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,40 +152,70 @@ def _check(name, t, shape):
 
 
 def _check_inputs(lib, x, sc: KScenario, kc: KConsts, dims):
-    if dims.N != lib.dftpav_kernel_n() or dp_of(dims) != lib.dftpav_kernel_dp():
+    if dims.S > lib.dftpav_kernel_max_s():
+        raise NotImplementedError(
+            f"the kernels take at most {lib.dftpav_kernel_max_s()} gear "
+            f"segments; got S={dims.S} (the plain round loop takes any S)")
+    if dims.N != lib.dftpav_kernel_n() or \
+            dp_of(dims) != lib.dftpav_kernel_dp(dims.S):
         raise NotImplementedError(
             f"the kernels are built for N={lib.dftpav_kernel_n()} pieces; "
             f"got N={dims.N}")
     if dims.H > lib.dftpav_max_h():
         raise NotImplementedError(f"H={dims.H} > {lib.dftpav_max_h()}")
-    B = x.shape[-1]
+    B, S = x.shape[-1], dims.S
     R, C, O = r_rows(dims), dims.N + 5, max(dims.O, 1)
     _check("x", x, (dp_of(dims), B))
     _check("bnd", sc.bnd, (bnd_rows(dims), B))
     _check("misc", sc.misc, (misc_rows(dims), B))
-    _check("corr_n", sc.corr_n, (dims.H, 2, R, B))
-    _check("corr_p", sc.corr_p, (dims.H, 2, R, B))
-    _check("corr_m", sc.corr_m, (dims.H, R, B))
+    _check("corr_n", sc.corr_n, (dims.H, 2, S * R, B))
+    _check("corr_p", sc.corr_p, (dims.H, 2, S * R, B))
+    _check("corr_m", sc.corr_m, (dims.H, S * R, B))
     _check("obs_c", sc.obs_c, (O, 2, 6 * dims.Po, B))
-    _check("P", kc.P, (1, 3, R, C))
-    _check("gridc", kc.gridc, (1, 2, R, 1))
-    if kc.Q.shape[-1] != C or not kc.Q.is_cuda:
+    _check("P", kc.P, (S, 3, R, C))
+    _check("gridc", kc.gridc, (S, 2, R, 1))
+    if kc.Q.shape[0] != S or kc.Q.shape[-1] != C or not kc.Q.is_cuda:
         raise ValueError(f"Q: shape {tuple(kc.Q.shape)}")
     return B, R
 
 
-def weight_vector(sw: StaticW, sigma: float):
+def seg_rows(dims) -> list:
+    """Sample rows the kernels keep per segment: its weighted rows, padded
+    to a multiple of 8 (within r_rows); one segment keeps all r_rows, so
+    that its constants are one flat copy."""
+    R = r_rows(dims)
+    if dims.S == 1:
+        return [R]
+    return [min(R, -(-seg_active(dims, s) // 8) * 8) for s in range(dims.S)]
+
+
+def weight_vector(sw: StaticW, sigma, dims):
     """The kernels' weight vector (csrc/kcost.cuh WIdx order), computed in
-    double on the host and rounded once to float32."""
+    double on the host and rounded once to float32: the weights, hull and
+    the class (segments, piece counts, rows kept, per-segment virtual-time
+    sigma; `sigma` as EngineFlags.vt_scale takes it)."""
+    sig = resolve_vt_scale(sigma, dims.ns_tuple)
     vals = [sw.wei_obs, sw.wei_surround, sw.wei_feas, sw.wei_time,
             sw.max_forward_vel, sw.max_forward_acc, sw.max_forward_cur,
             sw.max_backward_vel, sw.max_backward_acc, sw.max_backward_cur,
             sw.mini_t, sw.epis, sw.lse_alpha, sw.cost_scale,
             (1.5 * sw.veh_len) ** 2,
-            sw.surround_clearance + math.log(8.0) / sw.lse_alpha, sigma]
+            sw.surround_clearance + math.log(8.0) / sw.lse_alpha, sig[0]]
     vals += [v for xy in sw.le for v in xy]
     vals += [v for xy in sw.e_hat for v in xy]
-    return vals
+    return vals + [sw.non_sinv] + _class_vector(dims, sig)
+
+
+def _class_vector(dims, sig):
+    """S, then per segment (3 slots, the unused ones repeating segment 0)
+    its pieces, rows kept and sigma."""
+    pad = lambda v: list(v)[:3] + [v[0]] * (3 - len(v))
+    return [dims.S, *pad(dims.ns_tuple), *pad(seg_rows(dims)), *pad(sig)]
+
+
+def _weights(lib, sw, sigma, dims):
+    """weight_vector as the library's float array."""
+    return _floats(weight_vector(sw, sigma, dims), lib.dftpav_weight_len())
 
 
 def lbfgs_vector(p, flags):
@@ -208,14 +242,15 @@ def _stream():
 
 
 def launch_eval_fg(x, sc: KScenario, kc: KConsts, sw: StaticW, dims,
-                   sigma: float):
-    """Kernel A: (f [B], g [DP, B]) at x [DP, B]."""
+                   sigma):
+    """Kernel A: (f [B], g [DP, B]) at x [DP, B]. sigma: the virtual-time
+    preconditioning, as EngineFlags.vt_scale takes it."""
     lib = library()
     B, R = _check_inputs(lib, x, sc, kc, dims)
-    Q = kc.Q[0, :dims.N + 5].contiguous()
+    Q = kc.Q[:, :dims.N + 5].contiguous()
     f = torch.empty(B, dtype=torch.float32, device=x.device)
     g = torch.empty_like(x)
-    w = _floats(weight_vector(sw, sigma), lib.dftpav_weight_len())
+    w = _weights(lib, sw, sigma, dims)
     rc = lib.dftpav_eval_fg(
         x.data_ptr(), sc.bnd.data_ptr(), sc.misc.data_ptr(),
         sc.corr_n.data_ptr(), sc.corr_p.data_ptr(), sc.corr_m.data_ptr(),
@@ -227,7 +262,7 @@ def launch_eval_fg(x, sc: KScenario, kc: KConsts, sw: StaticW, dims,
 
 
 def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
-                       dims, sigma: float, p, max_iter: int, flags):
+                       dims, sigma, p, max_iter: int, flags):
     """Kernel B: the whole solve from (x0, f0, g0). Returns x [DP, B],
     f [B] and info [3, B] int32 (status, k clamped to max_iter, evals)."""
     return solve_fused_with(library(), x0, f0, g0, sc, kc, sw, dims, sigma, p,
@@ -235,7 +270,7 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
 
 
 def solve_fused_with(lib, x0, f0, g0, sc: KScenario, kc: KConsts,
-                     sw: StaticW, dims, sigma: float, p, max_iter: int, flags):
+                     sw: StaticW, dims, sigma, p, max_iter: int, flags):
     """launch_solve_fused through the kernel library `lib` (from `load`)."""
     B, R = _check_inputs(lib, x0, sc, kc, dims)
     _check("f0", f0, (B,))
@@ -244,16 +279,16 @@ def solve_fused_with(lib, x0, f0, g0, sc: KScenario, kc: KConsts,
         raise NotImplementedError(
             f"the kernel is built for mem_size={lib.dftpav_mem()} and "
             f"past <= {lib.dftpav_max_past()}")
-    Q = kc.Q[0, :dims.N + 5].contiguous()
+    Q = kc.Q[:, :dims.N + 5].contiguous()
     x = torch.empty_like(x0)
     f = torch.empty(B, dtype=torch.float32, device=x0.device)
     info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
     # the persistent grid's lane counter, zeroed on the current stream, and
     # the half-planes' lane-major copy the launch writes
     queue = torch.zeros(1, dtype=torch.int32, device=x0.device)
-    planes = torch.empty(B * 5 * dims.H * R, dtype=torch.float32,
+    planes = torch.empty(B * 5 * dims.H * dims.S * R, dtype=torch.float32,
                          device=x0.device)
-    w = _floats(weight_vector(sw, sigma), lib.dftpav_weight_len())
+    w = _weights(lib, sw, sigma, dims)
     lp = _floats(lbfgs_vector(p, flags), lib.dftpav_lbfgs_len())
     rc = lib.dftpav_solve_fused(
         x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
@@ -274,8 +309,12 @@ def kernel_info(dims, which: str) -> dict:
     class `dims` (the occupancy API; nothing is launched)."""
     lib = library()
     out = (ctypes.c_int * 5)()
-    rc = lib.dftpav_kernel_info("AB".index(which), r_rows(dims), dims.O,
-                                dims.Po, out)
+    # the launch plan reads only the class at the vector's end
+    cls = _class_vector(dims, (1.0,) * dims.S)
+    w = _floats([0.0] * (lib.dftpav_weight_len() - len(cls)) + cls,
+                lib.dftpav_weight_len())
+    rc = lib.dftpav_kernel_info("AB".index(which), ctypes.addressof(w),
+                                r_rows(dims), dims.O, dims.Po, out)
     _raise_on(lib, rc, "dftpav_kernel_info")
     return dict(zip(("registers", "local_bytes", "resident_warps_per_sm",
                      "blocks", "smem_bytes"), list(out)))

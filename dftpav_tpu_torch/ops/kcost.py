@@ -16,8 +16,11 @@ to traj_optimizer.cpp):
 csrc/kcost.cuh), CPU tensors to `eval_fg_plain` (autograd). The plain
 version evaluates all R rows in one pass (the TPU chunked them for VMEM).
 
-This slice covers the single-segment class (S = 1, uniform N). Multi-gear
-classes raise NotImplementedError (ROADMAP.md Queue 1 item 6).
+Any S and per-segment piece classes (Dims.Ns): segments are a loop over the
+same rows, each with its own sample maps (built for its piece count n_s,
+zero-padded to C = N+5 rhs columns), gear-junction boundary overrides read
+from the decision vector, and absolute obstacle time offset by the earlier
+segments' durations. The kernels take S <= 3 (ops/_cuda.py).
 """
 
 from __future__ import annotations
@@ -41,14 +44,6 @@ DP = 16  # padded decision rows for the S=1 bench class (dim = 15 at N=8)
 
 def _pad8(n: int) -> int:
     return ((n + 7) // 8) * 8
-
-
-def check_class(dims: Dims) -> None:
-    """Raise for problem classes this slice of the port does not cover."""
-    if dims.S != 1 or dims.Ns is not None:
-        raise NotImplementedError(
-            "only the single-segment class (S=1, Dims.Ns=None) is ported; "
-            "multi-gear classes are ROADMAP.md Queue 1 item 6")
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,41 +269,73 @@ def _pos_lse_over(vals, alpha):
     return (torch.log(s) + m) / alpha
 
 
-def _pre(x, sc: KScenario, sw: StaticW, dims: Dims, sigma: float):
-    """Decision matrix [DP, B] -> (rhs_x [C, B], rhs_y [C, B], dT [B], T [B]).
+def _pre(x, sc: KScenario, sw: StaticW, dims: Dims, sigma: tuple):
+    """Decision matrix [DP, B] -> per-segment (rhs_x, rhs_y, dT, tt, T):
+    lists of S tensors ([C, B] rhs per dimension, piece duration,
+    cumulative time offset of the segment's start, segment duration).
 
-    Row n_in of x stores the virtual time divided by sigma (the vt_scale
-    preconditioning, packed by pallas_solve._prep); it is multiplied back
-    here."""
-    N = dims.N
-    n_in = 2 * (N - 1)
-    T = virtual_to_real(x[n_in] * sigma, sw.mini_t)
-    dT = T / N
-    dT2 = dT * dT
+    Rows n_in + s hold segment s's virtual time divided by sigma[s] (the
+    vt_scale preconditioning, packed by pallas_solve._prep); it is
+    multiplied back here. Gear junction j (between segments j and j + 1)
+    takes its position from the gear variables and its velocity
+    -+non_sinv (cos a, sin a) when segment j + 1 is unmasked
+    (costFunctionCallback:269-282). Segment s uses n_s - 1 inner
+    waypoints, its rhs zero-padded to C = N + 5 rows."""
+    S, N = dims.S, dims.N
+    n_in = 2 * S * (N - 1)
+    T = [virtual_to_real(x[n_in + s] * sigma[s], sw.mini_t) for s in range(S)]
+    gp_row = lambda j, d: n_in + S + 2 * j + d
+    ga = [x[n_in + S + 2 * (S - 1) + j] for j in range(S - 1)]
+    jm = [sc.misc[S + s] > 0.5 for s in range(S)]
+    b = sc.bnd
+    rhs_x, rhs_y, dTs, tts = [], [], [], []
+    trajtime = torch.zeros_like(T[0])
+    for seg, n_seg in enumerate(dims.ns_tuple):
+        dT = T[seg] / n_seg
+        dT2 = dT * dT
+        base = 12 * seg
 
-    def rhs_dim(d):
-        b = sc.bnd
-        rows = [b[d], b[2 + d] * dT, b[4 + d] * dT2]
-        rows += [x[2 * j + d] for j in range(N - 1)]
-        rows += [b[6 + d], b[8 + d] * dT, b[10 + d] * dT2]
-        return torch.stack(rows)
+        def rhs_dim(d):
+            hp, hv, ha = b[base + d], b[base + 2 + d], b[base + 4 + d]
+            tp, tv, ta = b[base + 6 + d], b[base + 8 + d], b[base + 10 + d]
+            trig = torch.cos if d == 0 else torch.sin
+            if seg > 0:
+                hp = torch.where(jm[seg], x[gp_row(seg - 1, d)], hp)
+                hv = torch.where(jm[seg], -sw.non_sinv * trig(ga[seg - 1]),
+                                 hv)
+            if seg < S - 1:
+                tp = torch.where(jm[seg + 1], x[gp_row(seg, d)], tp)
+                tv = torch.where(jm[seg + 1], sw.non_sinv * trig(ga[seg]),
+                                 tv)
+            rows = [hp, hv * dT, ha * dT2]
+            rows += [x[2 * ((N - 1) * seg + j) + d] for j in range(n_seg - 1)]
+            rows += [tp, tv * dT, ta * dT2]
+            rows += [torch.zeros_like(hp)] * (N - n_seg)
+            return torch.stack(rows)
 
-    return rhs_dim(0), rhs_dim(1), dT, T
+        rhs_x.append(rhs_dim(0))
+        rhs_y.append(rhs_dim(1))
+        dTs.append(dT)
+        tts.append(trajtime)
+        trajtime = trajtime + T[seg]
+    return rhs_x, rhs_y, dTs, tts, T
 
 
-def _obstacle_cost(o, sc, sw, dims, sig_x, sig_y, u, v, wq, dT, valid, frac):
+def _obstacle_cost(o, sc, sw, dims, sig_x, sig_y, u, v, wq, dT, tt, valid,
+                   frac):
     """Dynamic-obstacle penalty rows (traj_optimizer.cpp:1311-1684): dual
     log-sum-exp signed distance between the ego hull and the obstacle hull,
     the obstacle a Po-piece quintic with constant-acceleration
-    extrapolation past its horizon."""
-    O, Po, ob = dims.O, dims.Po, 2
+    extrapolation past its horizon, sampled at the absolute time
+    rel_t0 + tt + frac dT."""
+    O, Po, ob = dims.O, dims.Po, 2 * dims.S
     alpha = sw.lse_alpha
     d_min = sw.surround_clearance + math.log(8.0) / alpha
     E = len(sw.le)
     dt_o = sc.misc[ob + o][None]
     rel_t0 = sc.misc[ob + O + o][None]
     mask_o = sc.misc[ob + 2 * O + o][None] > 0.5
-    pt_time = rel_t0 + frac * dT[None]
+    pt_time = rel_t0 + tt[None] + frac * dT[None]
     total = dt_o * Po
     inside = pt_time < total
     ft = torch.minimum(pt_time, total) / dt_o
@@ -397,22 +424,34 @@ def _obstacle_cost(o, sc, sw, dims, sig_x, sig_y, u, v, wq, dT, valid, frac):
 def eval_cost(x, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
               flags: EngineFlags | None = None):
     """Scaled objective per lane: x [DP, B] -> f [B] (plain torch,
-    differentiable)."""
-    check_class(dims)
+    differentiable). Each segment's terms are weighted by its seg_mask
+    (S > 1)."""
     flags = flags or EngineFlags()
-    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)[0]
-    rhs_x, rhs_y, dT, T = _pre(x, sc, sw, dims, sigma)
-    C = rhs_x.shape[0]
+    S = dims.S
+    rhs_xs, rhs_ys, dTs, tts, Ts = _pre(
+        x, sc, sw, dims, resolve_vt_scale(flags.vt_scale, dims.ns_tuple))
+    f = 0.0
+    for seg in range(S):
+        segw = sc.misc[S + seg] if S > 1 else 1.0
+        f = f + segw * _segment_cost(seg, rhs_xs[seg], rhs_ys[seg],
+                                     dTs[seg], tts[seg], Ts[seg], sc, kc, sw,
+                                     dims)
+    return sw.cost_scale * f
 
-    # jerk energy + time (seg_mask weight is 1 for a single segment)
-    Q = kc.Q[0][:C]
+
+def _segment_cost(seg, rhs_x, rhs_y, dT, tt, T, sc, kc, sw, dims):
+    """One segment's jerk energy, time, corridor, feasibility and obstacle
+    terms [B]."""
+    C = rhs_x.shape[0]
+    Q = kc.Q[seg][:C]
     invdT = 1.0 / dT
     f = (torch.sum(rhs_x * (Q @ rhs_x), dim=0)
          + torch.sum(rhs_y * (Q @ rhs_y), dim=0)) * invdT ** 5
     f = f + sw.wei_time * T
 
-    P0, P1, P2 = kc.P[0, 0], kc.P[0, 1], kc.P[0, 2]         # [R, C]
-    omg, frac = kc.gridc[0, 0], kc.gridc[0, 1]               # [R, 1]
+    P0, P1, P2 = kc.P[seg, 0], kc.P[seg, 1], kc.P[seg, 2]   # [R, C]
+    omg, frac = kc.gridc[seg, 0], kc.gridc[seg, 1]           # [R, 1]
+    R = P0.shape[0]
     sig_x, sig_y = P0 @ rhs_x, P0 @ rhs_y                    # [R, B]
     invdTr = invdT[None]
     dsx = (P1 @ rhs_x) * invdTr
@@ -430,7 +469,7 @@ def eval_cost(x, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
     vel32_reci_e = vel2_reci_e * torch.sqrt(vel2_reci_e)
     wq = torch.where(valid, omg * dT[None], torch.zeros_like(vn2))
 
-    sgl = sc.misc[0][None]
+    sgl = sc.misc[seg][None]
     fwd = sgl > 0.0
     full = lambda a, b: torch.where(fwd, torch.full_like(sgl, a),
                                     torch.full_like(sgl, b))
@@ -442,16 +481,17 @@ def eval_cost(x, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
     u = dsx * inv_vn * sgl
     v = dsy * inv_vn * sgl
 
-    # static corridor (traj_optimizer.cpp:592-622)
+    # static corridor (traj_optimizer.cpp:592-622), the segment's rows
+    rows = slice(seg * R, (seg + 1) * R)
     acc_obs = 0.0
     for e in range(len(sw.le)):
         lex, ley = sw.le[e]
         bx = sig_x + u * lex - v * ley
         by = sig_y + v * lex + u * ley
         for h in range(dims.H):
-            viol = sc.corr_n[h, 0] * (bx - sc.corr_p[h, 0]) \
-                + sc.corr_n[h, 1] * (by - sc.corr_p[h, 1])
-            acc_obs = acc_obs + smoothed_l1(viol) * sc.corr_m[h]
+            viol = sc.corr_n[h, 0, rows] * (bx - sc.corr_p[h, 0, rows]) \
+                + sc.corr_n[h, 1, rows] * (by - sc.corr_p[h, 1, rows])
+            acc_obs = acc_obs + smoothed_l1(viol) * sc.corr_m[h, rows]
     pen = sw.wei_obs * torch.sum(wq * acc_obs, dim=0)
 
     # feasibility (traj_optimizer.cpp:642-705)
@@ -468,9 +508,8 @@ def eval_cost(x, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
     cost_dyn = 0.0
     for o in range(dims.O):
         cost_dyn = cost_dyn + _obstacle_cost(
-            o, sc, sw, dims, sig_x, sig_y, u, v, wq, dT, valid, frac)
-    pen = pen + sw.wei_surround * cost_dyn
-    return sw.cost_scale * (f + pen)
+            o, sc, sw, dims, sig_x, sig_y, u, v, wq, dT, tt, valid, frac)
+    return f + pen + sw.wei_surround * cost_dyn
 
 
 def _no_tf32() -> None:
@@ -501,9 +540,8 @@ def eval_fg(x, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
         return eval_fg_plain(x, sc, kc, sw, dims, flags)
     from dftpav_tpu_torch.ops import _cuda
 
-    check_class(dims)
     flags = flags or EngineFlags()
-    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)[0]
+    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)
     eval_fg.launches += 1
     return _cuda.launch_eval_fg(x, sc, kc, sw, dims, sigma)
 

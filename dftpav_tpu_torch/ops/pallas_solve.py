@@ -10,9 +10,9 @@ independently, so a batch pays the mean trial count per lane, not the max.
 
 `solve_batch_fused` is the wrapper: for CUDA tensors it evaluates the
 initial point with kernel A (kcost.eval_fg) and runs the whole round loop
-with kernel B (csrc/kernels.cu `dftpav_solve_fused`, eight threads of a
-warp per lane, each lane exiting on its own); for CPU tensors it runs the
-plain loop. The TPU's multi-phase lane compaction has no counterpart: it
+with kernel B (csrc/kernels.cu `dftpav_solve_fused`, one warp per lane,
+each lane exiting on its own; S <= 3 gear segments); for CPU tensors it
+runs the plain loop, any S. The TPU's multi-phase lane compaction has no counterpart: it
 re-gathered the stragglers of 128-lane tiles that ran until their slowest
 lane finished, and was bit-identical per lane to the unphased solve, so a
 kernel whose lanes exit individually computes the same result without it.
@@ -215,17 +215,21 @@ def _solve_rounds(x0, sc: KScenario, kc: KConsts, sw: StaticW, dims: Dims,
     return c
 
 
-def _prep(batch: Scenario, w: Weights, dims: Dims, dtype, sigma: float):
-    """Clamp boundaries, pack x0 into padded [DP, B] rows (virtual time
-    divided by sigma), build the kernel-layout slabs and constants."""
+def _prep(batch: Scenario, w: Weights, dims: Dims, dtype, sigma):
+    """Clamp boundaries, pack x0 into padded [DP, B] rows (segment s's
+    virtual time divided by sigma[s]; sigma as EngineFlags.vt_scale takes
+    it), build the kernel-layout slabs and constants."""
     from dftpav_tpu_torch.solver import clamp_boundary_states
 
+    sigma = resolve_vt_scale(sigma, dims.ns_tuple)
     batch = clamp_boundary_states(batch, w)
     x0 = cost_mod.initial_guess(batch, w, dims)           # [B, D]
     B, D = x0.shape
-    if sigma != 1.0:
+    n_in = 2 * dims.S * (dims.N - 1)
+    if any(v != 1.0 for v in sigma):
         x0 = x0.clone()
-        x0[:, D - 1] = x0[:, D - 1] / sigma
+        x0[:, n_in:n_in + dims.S] /= torch.as_tensor(sigma, dtype=x0.dtype,
+                                                     device=x0.device)
     x0p = torch.zeros((dp_of(dims), B), dtype=dtype, device=x0.device)
     x0p[:D] = x0.T.to(dtype)
     sc = kcost.prep_scenario(batch, dims, dtype)
@@ -234,19 +238,35 @@ def _prep(batch: Scenario, w: Weights, dims: Dims, dtype, sigma: float):
 
 
 def _finalize(batch, out_x, out_f, out_status, out_k, w, dims: Dims,
-              cfg: PlannerConfig, D: int, sigma: float) -> SolveResult:
+              cfg: PlannerConfig, D: int, sigma) -> SolveResult:
     """MINCO coefficients and SolveResult from the optimized variables
-    (once per solve, outside the hot loop)."""
+    (once per solve, outside the hot loop). With per-segment piece classes
+    (Dims.Ns) each segment is generated on its own n_s pieces and then
+    re-expressed exactly on the uniform N-piece grid (minco.subdivide), so
+    the output is [S, N, 6, 2] with dT = T / N for every class."""
+    n_in = 2 * dims.S * (dims.N - 1)
+    sigma = resolve_vt_scale(sigma, dims.ns_tuple)
     x_fin = out_x[:D].clone()
-    x_fin[D - 1] = x_fin[D - 1] * sigma
+    x_fin[n_in:n_in + dims.S] *= torch.as_tensor(
+        sigma, dtype=x_fin.dtype, device=x_fin.device)[:, None]
     u = bcost.unpack_b(x_fin, dims)
     T = cost_mod.virtual_to_real(u.vt, float(w.mini_t))
     dT = T / dims.N
     bm = bcost.to_bminor(batch)
     heads, tails = bcost.boundary_states_b(bm, u, w, dims)
-    maps = minco.maps_as(dims.N, out_x.dtype, out_x.device)
-    coeffs = bcost.generate_b(u.inner, dT, heads.to(out_x.dtype),
-                              tails.to(out_x.dtype), maps)
+    heads, tails = heads.to(out_x.dtype), tails.to(out_x.dtype)
+    if dims.Ns is None:
+        maps = minco.maps_as(dims.N, out_x.dtype, out_x.device)
+        coeffs = bcost.generate_b(u.inner, dT, heads, tails, maps)
+    else:
+        segs = []
+        for s, n_s in enumerate(dims.ns_tuple):
+            maps_s = minco.maps_as(n_s, out_x.dtype, out_x.device)
+            c_s = bcost.generate_b(u.inner[s:s + 1, :n_s - 1],
+                                   (T[s] / n_s)[None], heads[s:s + 1],
+                                   tails[s:s + 1], maps_s)  # [1, n_s, 6, 2, B]
+            segs.append(minco.subdivide(c_s[0], dims.N // n_s))
+        coeffs = torch.stack(segs)                         # [S, N, 6, 2, B]
     cost = out_f / cfg.opt.cost_scale
     success = (out_status >= 0) & (cost < cfg.opt.reject_cost)
     return SolveResult(coeffs=torch.movedim(coeffs, -1, 0), dT=dT.T,
@@ -263,10 +283,9 @@ def solve_batch_rounds(batch: Scenario, w: Weights, dims: Dims,
     device. Weights must be uniform across the batch (one value each).
     x0_override ([DP, B]) warm-starts from a packed decision matrix;
     return_x adds the final packed matrix to the return."""
-    kcost.check_class(dims)
     kcost._no_tf32()
     flags = flags or EngineFlags()
-    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)[0]
+    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)
     dtype = batch.init_T.dtype
     p = cfg.opt.lbfgs
     max_iter = p.max_iterations if max_iterations is None else max_iterations
@@ -293,9 +312,8 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
                                   flags, x0_override, return_x)
     from dftpav_tpu_torch.ops import _cuda
 
-    kcost.check_class(dims)
     flags = flags or EngineFlags()
-    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)[0]
+    sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)
     p = cfg.opt.lbfgs
     max_iter = p.max_iterations if max_iterations is None else max_iterations
     sw = StaticW.build(w, cfg)

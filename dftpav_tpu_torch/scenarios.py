@@ -1,5 +1,6 @@
-"""Synthetic parking problems for tests and benchmarks: random
-single-segment maneuvers and a two-segment gear change.
+"""Parking problems for tests and benchmarks: synthetic single-segment and
+multi-gear maneuvers, and batches planned by the native front end on
+random parking-lot grids (the real problem distribution).
 
 Pure numpy, identical to `dftpav_tpu.scenarios` for the same seed (the
 parity tests check the arrays bit for bit). Carry a batch to the card
@@ -7,6 +8,8 @@ with `types.from_numpy(batch, Scenario)`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -164,16 +167,49 @@ def batch_scenarios(dims: Dims, batch: int, seed=0, dtype=np.float64,
         for _ in range(batch)])
 
 
+def _seg_inner(n_s, N, a, b, dtype):
+    """Inner waypoints of one segment from a to b at its own k / n_s
+    fractions, zero-padded to N - 1 slots."""
+    frac = np.linspace(0.0, 1.0, n_s + 1)[1:-1]
+    out = np.zeros((N - 1, 2), dtype)
+    out[:n_s - 1] = (np.asarray(a) + (np.asarray(b) - np.asarray(a))
+                     * frac[:, None]).astype(dtype)
+    return out
+
+
+def _seg_corridor(dims: Dims, n_s, a, b, dtype):
+    """Box corridors (half-width 10 m) along a -> b on one segment's own
+    n_s-piece sample grid, zero-padded to N pieces."""
+    N = dims.N
+    grid = sample_grid(n_s, dims.K, dims.Kdes)
+    s_frac = (grid.frac / n_s).astype(dtype)             # [n_s, K1]
+    c = np.asarray(a) + (np.asarray(b) - np.asarray(a)) * s_frac[..., None]
+    cn = np.zeros((N, dims.K1, dims.H, 2), dtype)
+    cp = np.zeros((N, dims.K1, dims.H, 2), dtype)
+    cm = np.zeros((N, dims.K1, dims.H), bool)
+    d1 = dataclasses.replace(dims, N=n_s, Ns=None)
+    cn[:n_s], cp[:n_s], cm[:n_s] = _corridor_from_boxes(c, 10.0, 10.0, d1,
+                                                        dtype)
+    return cn, cp, cm
+
+
+def _no_obstacles(dims: Dims, dtype):
+    O, Po = dims.O, dims.Po
+    return dict(obs_coef=np.zeros((O, Po, 6, 2), dtype),
+                obs_dt=np.ones((O,), dtype),
+                obs_rel_t0=np.zeros((O,), dtype),
+                obs_mask=np.zeros((O,), bool))
+
+
 def gear_scenario(dims: Dims, wheel_base=2.85, dtype=np.float64) -> Scenario:
     """Two-segment forward/reverse maneuver (S=2): drive forward, then back
     into a lateral offset, which exercises the gear-position and -angle
-    decision variables. Uniform-N classes only (Dims.Ns=None)."""
+    decision variables. With per-segment piece classes (Dims.Ns) each
+    segment's waypoints sit at its own k / n_s fractions, its corridors
+    ride its own sample grid, and its initial duration scales with its
+    piece count."""
     assert dims.S == 2
-    if dims.Ns is not None:
-        raise NotImplementedError(
-            "per-segment piece classes (Dims.Ns) are not ported yet: "
-            "ROADMAP.md Queue 1 item 6")
-    N = dims.N
+    ns = dims.ns_tuple
     ini = state_to_flat((0.0, 0.0), 0.0, 1.0, 0.0, 0.0, wheel_base, 1,
                         dtype=dtype)
     mid_pos = np.array([8.0, 1.0])
@@ -184,33 +220,256 @@ def gear_scenario(dims: Dims, wheel_base=2.85, dtype=np.float64) -> Scenario:
                           dtype=dtype)
     end = state_to_flat((5.0, -2.0), 0.2, 0.5, 0.0, 0.0, wheel_base, -1,
                         dtype=dtype)
-
-    def seg_inner(a, b):
-        frac = np.linspace(0.0, 1.0, N + 1)[1:-1]
-        return (np.asarray(a) + (np.asarray(b) - np.asarray(a))
-                * frac[:, None]).astype(dtype)
-
-    def seg_corridor(a, b):
-        grid = sample_grid(N, dims.K, dims.Kdes)
-        s_frac = (grid.frac / N).astype(dtype)              # [N, K1]
-        c = (np.asarray(a)
-             + (np.asarray(b) - np.asarray(a)) * s_frac[..., None])
-        return _corridor_from_boxes(c, 10.0, 10.0, dims, dtype)
-
-    n0, p0, m0 = seg_corridor((0.0, 0.0), mid_pos)
-    n1, p1, m1 = seg_corridor(mid_pos, (5.0, -2.0))
-
-    O, Po = dims.O, dims.Po
+    n0, p0, m0 = _seg_corridor(dims, ns[0], (0.0, 0.0), mid_pos, dtype)
+    n1, p1, m1 = _seg_corridor(dims, ns[1], mid_pos, (5.0, -2.0), dtype)
     return Scenario(
         ini_state=np.stack([ini, mid_b]),
         fin_state=np.stack([mid_f, end]),
-        init_inner=np.stack([seg_inner((0.0, 0.0), mid_pos),
-                             seg_inner(mid_pos, (5.0, -2.0))]),
-        init_T=np.array([4.0, 4.0], dtype),
+        init_inner=np.stack([
+            _seg_inner(ns[0], dims.N, (0.0, 0.0), mid_pos, dtype),
+            _seg_inner(ns[1], dims.N, mid_pos, (5.0, -2.0), dtype)]),
+        init_T=np.array([4.0, 4.0], dtype) if dims.Ns is None else
+        np.array([max(2.0, 0.75 * ns[0]), max(2.0, 0.75 * ns[1])], dtype),
         singul=np.array([1, -1], np.int32),
         seg_mask=np.array([True, True]),
         corr_n=np.stack([n0, n1]), corr_p=np.stack([p0, p1]),
-        corr_mask=np.stack([m0, m1]),
-        obs_coef=np.zeros((O, Po, 6, 2), dtype), obs_dt=np.ones((O,), dtype),
-        obs_rel_t0=np.zeros((O,), dtype), obs_mask=np.zeros((O,), bool),
-    )
+        corr_mask=np.stack([m0, m1]), **_no_obstacles(dims, dtype))
+
+
+def multi_gear_scenario(dims: Dims, wheel_base=2.85,
+                        dtype=np.float64) -> Scenario:
+    """S-segment alternating-gear zig-zag (forward, reverse, forward, ...):
+    S=3 is the 'pull past - back in - pull forward' parallel-park shape
+    (the reference plans as many gear segments as the front end emits,
+    traj_manager.cpp:543). Ns-aware like gear_scenario."""
+    S, N = dims.S, dims.N
+    ns = dims.ns_tuple
+    pts = [np.array([0.0, 0.0])]
+    yaws = [0.0]
+    for i in range(S):
+        if i % 2 == 0:
+            pts.append(pts[-1] + np.array([7.0, 1.2 - 1.6 * (i // 2)]))
+            yaws.append(0.45)
+        else:
+            pts.append(pts[-1] + np.array([-3.2, -2.4]))
+            yaws.append(0.15)
+    sing = [1 if i % 2 == 0 else -1 for i in range(S)]
+
+    ini_l, fin_l, inner_l, cn_l, cp_l, cm_l, T_l = [], [], [], [], [], [], []
+    for i in range(S):
+        vi = 1.0 if i == 0 else 0.2
+        vo = 0.5 if i == S - 1 else 0.2
+        ini_l.append(state_to_flat(pts[i], yaws[i], vi, 0.0, 0.0,
+                                   wheel_base, sing[i], dtype=dtype))
+        fin_l.append(state_to_flat(pts[i + 1], yaws[i + 1], vo, 0.0, 0.0,
+                                   wheel_base, sing[i], dtype=dtype))
+        inner_l.append(_seg_inner(ns[i], N, pts[i], pts[i + 1], dtype))
+        n_, p_, m_ = _seg_corridor(dims, ns[i], pts[i], pts[i + 1], dtype)
+        cn_l.append(n_)
+        cp_l.append(p_)
+        cm_l.append(m_)
+        T_l.append(4.0 if dims.Ns is None else max(2.0, 0.75 * ns[i]))
+    return Scenario(
+        ini_state=np.stack(ini_l), fin_state=np.stack(fin_l),
+        init_inner=np.stack(inner_l), init_T=np.asarray(T_l, dtype),
+        singul=np.asarray(sing, np.int32), seg_mask=np.ones((S,), bool),
+        corr_n=np.stack(cn_l), corr_p=np.stack(cp_l),
+        corr_mask=np.stack(cm_l), **_no_obstacles(dims, dtype))
+
+
+# ---------------------------------------------------------------------------
+# Front-end-sourced batches (the REAL problem distribution)
+# ---------------------------------------------------------------------------
+
+def random_lot_grid(rng, lot=(40.0, 60.0), res=0.1, n_boxes=6):
+    """A randomized parking-lot occupancy grid: boundary walls + rectangular
+    obstacle islands (the obstacles_norm.json analogue of the reference's
+    playgrounds)."""
+    from dftpav_tpu_torch.frontend import GridMap2D
+
+    ny, nx = int(lot[0] / res), int(lot[1] / res)
+    occ = np.zeros((ny, nx), np.uint8)
+    occ[:3, :] = 1
+    occ[-3:, :] = 1
+    occ[:, :3] = 1
+    occ[:, -3:] = 1
+    for _ in range(n_boxes):
+        w = rng.uniform(2.0, 5.0)
+        h = rng.uniform(2.0, 5.0)
+        x0 = rng.uniform(4.0, lot[1] - 4.0 - w)
+        y0 = rng.uniform(4.0, lot[0] - 4.0 - h)
+        occ[int(y0 / res):int((y0 + h) / res),
+            int(x0 / res):int((x0 + w) / res)] = 1
+    return GridMap2D(occ, origin=(0.0, 0.0), resolution=res)
+
+
+def frontend_batch(dims: Dims, batch: int, seed=0, dtype=np.float32,
+                   n_obstacles=0, lot=(40.0, 60.0), queries_per_grid=16,
+                   max_search_time=0.1):
+    """Batched scenarios from the ACTUAL front end: randomized lot grids,
+    native kino A* + Reeds-Shepp + rectangle-corridor growth
+    (traj_manager.cpp:160-238 pipeline), optional circling movers MINCO-fit
+    as surround trajectories (parking_moving_obstacles.cc:42-100).
+
+    Only plans whose gear-segment count fits dims.S are kept (for the S=1
+    bench class that is the single-gear subset of the distribution — same
+    class the synthetic bench draws from, but with real corridor geometry).
+    Returns a Scenario with leading [batch].
+    """
+    from dftpav_tpu_torch.config import FrontendConfig, PlannerConfig
+    from dftpav_tpu_torch.pipeline import ParkingPlanner
+    from dftpav_tpu_torch.sim.obstacles import CircularMover, \
+        fit_surround_trajs
+
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(PlannerConfig(), frontend=FrontendConfig(
+        max_search_time=max_search_time))
+    out = []
+    attempts = 0
+    while len(out) < batch:
+        grid = random_lot_grid(rng, lot=lot,
+                               n_boxes=int(rng.integers(4, 9)))
+        pp = ParkingPlanner(grid, cfg, dims, dtype=dtype)
+        vp = cfg.vehicle
+
+        def free_pose():
+            for _ in range(50):
+                x = rng.uniform(5.0, lot[1] - 5.0)
+                y = rng.uniform(5.0, lot[0] - 5.0)
+                yaw = rng.uniform(-np.pi, np.pi)
+                if not grid.obb_collides(x, y, yaw, vp.length + 0.6,
+                                         vp.width + 0.6, vp.d_cr):
+                    return x, y, yaw
+            return None
+
+        for _ in range(queries_per_grid):
+            if len(out) >= batch:
+                break
+            attempts += 1
+            if attempts > 60 * batch:
+                raise RuntimeError(
+                    f"front end produced only {len(out)}/{batch} scenarios")
+            sp = free_pose()
+            if sp is None:
+                continue
+            # goal ahead-ish of the start so single-gear plans dominate when
+            # dims.S == 1; multi-gear classes draw fully random goals
+            if dims.S == 1:
+                d = rng.uniform(8.0, 18.0)
+                dyaw = rng.uniform(-0.7, 0.7)
+                gx = sp[0] + d * np.cos(sp[2] + dyaw * 0.5)
+                gy = sp[1] + d * np.sin(sp[2] + dyaw * 0.5)
+                gyaw = sp[2] + dyaw
+            else:
+                g = free_pose()
+                if g is None:
+                    continue
+                gx, gy, gyaw = g
+            if not (3.0 < gx < lot[1] - 3.0 and 3.0 < gy < lot[0] - 3.0):
+                continue
+            if grid.obb_collides(gx, gy, gyaw, vp.length + 0.4,
+                                 vp.width + 0.4, vp.d_cr):
+                continue
+            v0 = rng.uniform(0.2, 2.0)
+            scen, meta = pp.plan_scenario((sp[0], sp[1], sp[2], v0),
+                                          (gx, gy, gyaw, 0.0))
+            if scen is None:
+                continue
+            if n_obstacles > 0 and dims.O > 0:
+                movers = [CircularMover(
+                    center=(rng.uniform(10.0, lot[1] - 10.0),
+                            rng.uniform(10.0, lot[0] - 10.0)),
+                    radius=rng.uniform(8.0, 14.0),
+                    speed=rng.uniform(2.0, 4.5),
+                    phase=rng.uniform(0.0, 2 * np.pi),
+                    ccw=bool(rng.integers(0, 2)))
+                    for _ in range(min(n_obstacles, dims.O))]
+                obs = fit_surround_trajs(movers, 0.0, dims, dtype=dtype)
+                scen = scen._replace(
+                    obs_coef=obs["obs_coef"], obs_dt=obs["obs_dt"],
+                    obs_rel_t0=obs["obs_rel_t0"], obs_mask=obs["obs_mask"])
+            out.append(scen)
+    return stack_scenarios(out)
+
+
+def frontend_pool_multigear(classes, n_plans: int, seed=11,
+                            dtype=np.float32, n_obstacles=0,
+                            lot=(40.0, 60.0), queries_per_grid=16,
+                            max_search_time=0.1):
+    """Pool of TWO-gear front-end plans bucketed by per-segment piece
+    class.
+
+    `classes`: list of Dims with Ns set (the S=2 class ladder). Every
+    successful nseg==2 plan is assembled for the class whose Ns equals its
+    natural quantized counts (pipeline.plan_scenario ladder selection) —
+    the reference plans EVERY scenario at its own piecing
+    (traj_manager.cpp:543); this is its static-shape form. Returns
+    (buckets, n_s2): buckets maps each class's Ns tuple to a list of
+    Scenario, n_s2 counts all two-gear plans seen (including ones whose
+    counts no class covers — the admission denominator for the
+    distribution-weighted bench line).
+    """
+    from dftpav_tpu_torch.config import FrontendConfig, PlannerConfig
+    from dftpav_tpu_torch.pipeline import ParkingPlanner
+    from dftpav_tpu_torch.sim.obstacles import CircularMover, \
+        fit_surround_trajs
+
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(PlannerConfig(), frontend=FrontendConfig(
+        max_search_time=max_search_time))
+    buckets = {c.Ns: [] for c in classes}
+    n_s2 = 0
+    attempts = 0
+    got = 0
+    while got < n_plans and attempts < 80 * n_plans:
+        grid = random_lot_grid(rng, lot=lot,
+                               n_boxes=int(rng.integers(4, 9)))
+        pp = ParkingPlanner(grid, cfg, classes[0], dtype=dtype,
+                            dims_classes=list(classes))
+        vp = cfg.vehicle
+
+        def free_pose():
+            for _ in range(50):
+                x = rng.uniform(5.0, lot[1] - 5.0)
+                y = rng.uniform(5.0, lot[0] - 5.0)
+                yaw = rng.uniform(-np.pi, np.pi)
+                if not grid.obb_collides(x, y, yaw, vp.length + 0.6,
+                                         vp.width + 0.6, vp.d_cr):
+                    return x, y, yaw
+            return None
+
+        for _ in range(queries_per_grid):
+            if got >= n_plans:
+                break
+            attempts += 1
+            sp = free_pose()
+            g = free_pose()
+            if sp is None or g is None:
+                continue
+            if grid.obb_collides(g[0], g[1], g[2], vp.length + 0.4,
+                                 vp.width + 0.4, vp.d_cr):
+                continue
+            v0 = rng.uniform(0.2, 2.0)
+            scen, meta = pp.plan_scenario((sp[0], sp[1], sp[2], v0),
+                                          (g[0], g[1], g[2], 0.0))
+            if scen is None or meta.n_segments != 2:
+                continue
+            n_s2 += 1
+            got += 1
+            key = meta.dims.Ns
+            if n_obstacles > 0 and meta.dims.O > 0:
+                movers = [CircularMover(
+                    center=(rng.uniform(10.0, lot[1] - 10.0),
+                            rng.uniform(10.0, lot[0] - 10.0)),
+                    radius=rng.uniform(8.0, 14.0),
+                    speed=rng.uniform(2.0, 4.5),
+                    phase=rng.uniform(0.0, 2 * np.pi),
+                    ccw=bool(rng.integers(0, 2)))
+                    for _ in range(min(n_obstacles, meta.dims.O))]
+                obs = fit_surround_trajs(movers, 0.0, meta.dims,
+                                         dtype=dtype)
+                scen = scen._replace(
+                    obs_coef=obs["obs_coef"], obs_dt=obs["obs_dt"],
+                    obs_rel_t0=obs["obs_rel_t0"], obs_mask=obs["obs_mask"])
+            buckets[key].append(scen)
+    return buckets, n_s2

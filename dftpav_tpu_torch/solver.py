@@ -4,10 +4,11 @@ OptimizeTrajectory, traj_optimizer.cpp:7-202, over a batch of scenarios).
 Usage:
     solve = make_solver(cfg, dims, max_iterations=150, flags=EngineFlags.tuned())
     result = solve(scenario_batch, weights)     # SolveResult with [B] axis
+    result = solve_with_retry(solve, scenario_batch, weights)
 
 Engines (same per-lane algorithm):
-  "fused": the whole-solve CUDA kernel for CUDA tensors; CPU tensors run
-      the plain round loop.
+  "fused": the whole-solve CUDA kernels for CUDA tensors (S <= 3, any
+      Dims.Ns); CPU tensors run the plain round loop.
   "rounds": the plain PyTorch round loop on any device.
   "bminor": the batch-minor engine (ops/bcost objective by autograd,
       ops/blbfgs lockstep L-BFGS) on any device, any S with uniform N; its
@@ -110,7 +111,7 @@ def make_solver(cfg: PlannerConfig, dims: Dims,
     SolveResult. `flags` (the kcost engines' knobs, "fused" and "rounds")
     defaults to EngineFlags() (lbfgs.hpp parity semantics); benchmarks pass
     EngineFlags.tuned()."""
-    from dftpav_tpu_torch.ops import kcost, pallas_solve
+    from dftpav_tpu_torch.ops import pallas_solve
 
     if engine == "bminor":
         if dims.Ns is not None:
@@ -129,7 +130,6 @@ def make_solver(cfg: PlannerConfig, dims: Dims,
         raise ValueError(f"unknown engine {engine!r}: 'fused', 'rounds' or "
                          "'bminor' (the vmap engine is ROADMAP.md Queue 1 "
                          "item 9)")
-    kcost.check_class(dims)
     flags = flags or EngineFlags()
 
     def solve(batch: Scenario, w: Weights):
@@ -137,3 +137,47 @@ def make_solver(cfg: PlannerConfig, dims: Dims,
                     flags=flags)
 
     return solve
+
+
+def solve_with_retry(solve, batch: Scenario, w: Weights,
+                     time_scales=(1.6, 0.7), pad_to: int = 128):
+    """Solve, then re-solve the failed lanes with their initial durations
+    scaled by each of `time_scales` in turn, keeping each lane's first
+    successful result (the init_T retry ladder).
+
+    The reference retries hard instances (traj_manager.cpp:90-103) and
+    keeps the previous trajectory when the optimizer fails
+    (traj_server_ros.cpp:166-186); most residual failures here are line
+    searches stalled by a poor init_T, and a stretched or shrunk initial
+    duration reaches another basin. The failed lanes are gathered on the
+    batch's device into a batch padded to a multiple of `pad_to` (with
+    copies of the first failed lane), re-solved, and scattered back; the
+    count of failed lanes is the only value read back to the host per
+    rung. `solve`: a (batch, w) -> SolveResult callable from make_solver.
+    Returns a SolveResult on the batch's device."""
+    res = solve(batch, w)
+    out = list(res)
+    success = res.success.clone()
+    for scale in time_scales:
+        idx = torch.nonzero(~success).flatten()
+        n_fail = int(idx.numel())
+        if n_fail == 0:
+            break
+        n = -(-n_fail // pad_to) * pad_to
+        sel = torch.cat([idx, idx[:1].expand(n - n_fail)])
+        sub = Scenario(*(a[sel] for a in batch))
+        sub = sub._replace(init_T=sub.init_T * scale)
+        r2 = solve(sub, w)
+        ok2 = r2.success[:n_fail]
+        fixed = idx[ok2]
+        out = [_scatter_rows(o, fixed, f[:n_fail][ok2])
+               for o, f in zip(out, r2)]
+        success[fixed] = True
+    return SolveResult(*out)._replace(success=success)
+
+
+def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
+    """dst with rows idx replaced by `rows` (a copy)."""
+    dst = dst.clone()
+    dst[idx] = rows.to(dst.dtype)
+    return dst

@@ -53,100 +53,123 @@ HARNESS = r"""
 #include "kcost.cuh"
 #include "solve.cuh"
 using namespace dftpav;
-constexpr int kN = 8;
-typedef KDims<kN> Dm;
+constexpr int kN = 8, kC = kN + 5;
 
 // One lane's scratch, as a warp's slice of shared memory holds it on the
-// card, and the class constants (the sample maps also in double).
-template <class T, int G>
+// card, and the class constants: per segment its rows_s weighted rows of
+// the sample maps (also in double), quadrature rows and jerk form, as the
+// kernels stage them.
+template <class T, int G, int S>
 struct Lane {
-  std::vector<double> Pd;
-  std::vector<T> bnd, obs;
+  typedef KDims<kN, S> Dm;
+  std::vector<double> Pd[kMaxS];
+  std::vector<T> Pc[kMaxS], gc[kMaxS];
+  std::vector<T> bnd, lm, obs;
   std::vector<ObsLane<T>> ol;
   std::vector<NearPair<T>> ring;
-  T x[Dm::DP], g[Dm::DP], qr[2 * Dm::C], acc[kAcc * G];
-  double rhs[2 * Dm::C];
+  T x[Dm::DP], g[Dm::DP], qr[2 * kC], acc[kAcc * G], sb[12], gb[8];
+  double rhs[2 * kC];
   T hs[kMem * Dm::DP], hy[kMem * Dm::DP], ys[kMem], alpha[kMem],
       pf[kMaxPast];
   LaneData<T> L;
   SolverMem<T> M;
-  Lane(const T* P, const T* Q, const T* gridc, int R, int H, int O, int Po)
-      : Pd(3 * R * Dm::C), bnd(12), obs(12 * O * Po + 1), ol(O + 1),
+  Lane(const T* P, const T* Q, const T* gridc, const KW<T>& w, int R, int H,
+       int O, int Po)
+      : bnd(12 * S), lm(2 * S), obs(12 * O * Po + 1), ol(O + 1),
         ring(2 * G) {
-    for (size_t i = 0; i < Pd.size(); ++i) Pd[i] = double(P[i]);
-    L.Pd = Pd.data(); L.P = P; L.Q = Q; L.gridc = gridc;
-    L.R = R; L.H = H; L.O = O; L.Po = Po;
-    L.bnd = bnd.data(); L.obs = obs.data(); L.ol = ol.data();
-    L.x = x; L.g = g; L.rhs = rhs; L.qr = qr; L.ring = ring.data();
-    L.acc = acc;
+    for (int s = 0; s < kMaxS; ++s) {
+      const int q = s < S ? s : 0, rs = w.rs[q];
+      Pd[s].resize(3 * rs * kC);
+      Pc[s].resize(3 * rs * kC);
+      gc[s].resize(2 * rs);
+      for (int o = 0; o < 3; ++o)
+        for (int i = 0; i < rs * kC; ++i) {
+          const T v = P[((size_t)q * 3 + o) * R * kC + i];
+          Pc[s][o * rs * kC + i] = v;
+          Pd[s][o * rs * kC + i] = double(v);
+        }
+      for (int o = 0; o < 2; ++o)
+        for (int r = 0; r < rs; ++r)
+          gc[s][o * rs + r] = gridc[((size_t)q * 2 + o) * R + r];
+      L.Pds[s] = Pd[s].data(); L.Ps[s] = Pc[s].data();
+      L.gridcs[s] = gc[s].data(); L.Qs[s] = Q + (size_t)q * kC * kC;
+    }
+    L.H = H; L.O = O; L.Po = Po; L.seg_rows = R;
+    L.bnd_lane = bnd.data(); L.lm = lm.data(); L.obs = obs.data();
+    L.ol = ol.data(); L.x = x; L.g = g; L.rhs = rhs; L.qr = qr;
+    L.ring = ring.data(); L.acc = acc; L.sb = sb; L.gb = gb;
     M.s = hs; M.y = hy; M.ys = ys; M.alpha = alpha; M.pf = pf;
   }
   void stage(const Slabs<T>& s, int lane) {
-    stage_lane(HostTeam<G, Dm::DP>(), s, lane, bnd.data(), obs.data(),
-               ol.data());
-    L.sgl = s.misc[lane];
+    stage_lane<S>(HostTeam<G, Dm::DP>(), s, lane, bnd.data(), lm.data(),
+                  obs.data(), ol.data());
   }
 };
 
 template <class T>
 static Slabs<T> slabs(const T* bnd, const T* misc, const T* cn, const T* cp,
                       const T* cm, const T* obs, int B, int R, int H, int O,
-                      int Po) {
+                      int Po, int S) {
   Slabs<T> s;
   s.bnd = bnd; s.misc = misc; s.cn = cn; s.cp = cp; s.cm = cm; s.obs = obs;
-  s.B = B; s.R = R; s.H = H; s.O = O; s.Po = Po;
+  s.B = B; s.R = R; s.H = H; s.O = O; s.Po = Po; s.S = S;
   return s;
 }
 
 // kernel A's mapping: half-planes read from the slabs
-template <class T, int G>
+template <class T, int G, int S>
 static void eval_all(const T* x, const T* bnd, const T* misc, const T* cn,
                      const T* cp, const T* cm, const T* obs, const T* P,
                      const T* Q, const T* gridc, const double* wts, int B,
                      int R, int H, int O, int Po, T* f, T* g) {
+  typedef KDims<kN, S> Dm;
   const KW<T> w = make_kw<T>(wts);
-  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po);
-  Lane<T, G> ln(P, Q, gridc, R, H, O, Po);
+  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
+  Lane<T, G, S> ln(P, Q, gridc, w, R, H, O, Po);
   for (int lane = 0; lane < B; ++lane) {
     ln.stage(s, lane);
-    ln.L.planes = planes_slab(s, lane);
+    ln.L.planes_lane = planes_slab(s, lane);
     ln.L.plane_row = (size_t)B;
+    if (S == 1) select_segment<T, kN, S>(ln.L, w, 0);
     for (int i = 0; i < Dm::DP; ++i) ln.x[i] = x[i * B + lane];
-    f[lane] = lane_eval<T, kN>(HostTeam<G, Dm::DP>(), ln.L, w);
+    f[lane] = lane_eval<T, kN, S>(HostTeam<G, Dm::DP>(), ln.L, w);
     for (int i = 0; i < Dm::DP; ++i) g[i * B + lane] = ln.g[i];
   }
 }
 
 // kernel B's mapping: half-planes read from the lane-major copy
-template <class T, int G>
+template <class T, int G, int S>
 static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
                       const T* misc, const T* cn, const T* cp, const T* cm,
                       const T* obs, const T* P, const T* Q, const T* gridc,
                       const double* wts, const double* lbp, int max_iter,
                       int max_ls, int past, int adaptive, int B, int R, int H,
                       int O, int Po, T* x_out, T* f_out, int* info) {
+  typedef KDims<kN, S> Dm;
   const KW<T> w = make_kw<T>(wts);
   const LP<T> p = make_lp<T>(lbp, max_iter, max_ls, past, adaptive);
-  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po);
-  std::vector<T> copy((size_t)B * 5 * H * R + 1);
+  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
+  const int RS = S * R;
+  std::vector<T> copy((size_t)B * 5 * H * RS + 1);
   for (int b = 0; b < B; ++b)
     for (int q = 0; q < 5 * H; ++q)
-      for (int r = 0; r < R; ++r)
-        copy[((size_t)b * 5 * H + q) * R + r] =
+      for (int r = 0; r < RS; ++r)
+        copy[((size_t)b * 5 * H + q) * RS + r] =
             lane_major_src(s, q)[(size_t)r * B + b];
-  Lane<T, G> ln(P, Q, gridc, R, H, O, Po);
+  Lane<T, G, S> ln(P, Q, gridc, w, R, H, O, Po);
   for (int lane = 0; lane < B; ++lane) {
     ln.stage(s, lane);
-    ln.L.planes = planes_lane_major(copy.data(), lane, H, R);
+    ln.L.planes_lane = planes_lane_major(copy.data(), lane, H, RS);
     ln.L.plane_row = 1;
+    if (S == 1) select_segment<T, kN, S>(ln.L, w, 0);
     T xl[Dm::DP], gl[Dm::DP], xo[Dm::DP];
     for (int i = 0; i < Dm::DP; ++i) {
       xl[i] = x0[i * B + lane];
       gl[i] = g0[i * B + lane];
     }
-    const SolveOut o = lane_solve<T, kN>(HostTeam<G, Dm::DP>(), ln.L, w, p,
-                                         ln.M, xl, f0[lane], gl, xo,
-                                         &f_out[lane]);
+    const SolveOut o = lane_solve<T, kN, S>(HostTeam<G, Dm::DP>(), ln.L, w,
+                                            p, ln.M, xl, f0[lane], gl, xo,
+                                            &f_out[lane]);
     for (int i = 0; i < Dm::DP; ++i) x_out[i * B + lane] = xo[i];
     info[lane] = o.status;
     info[B + lane] = o.k;
@@ -154,28 +177,33 @@ static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
   }
 }
 
-#define DEF(T, SUF, G)                                                     \
-  extern "C" void eval_##SUF##_g##G(const T* x, const T* bnd,              \
+#define DEF(T, SUF, G, S)                                                  \
+  extern "C" void eval_##SUF##_g##G##_s##S(const T* x, const T* bnd,       \
       const T* misc, const T* cn, const T* cp, const T* cm, const T* obs,  \
       const T* P, const T* Q, const T* gridc, const double* wts, int B,    \
       int R, int H, int O, int Po, T* f, T* g) {                            \
-    eval_all<T, G>(x, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, B, R,  \
-                   H, O, Po, f, g);                                        \
+    eval_all<T, G, S>(x, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, B,  \
+                      R, H, O, Po, f, g);                                  \
   }                                                                        \
-  extern "C" void solve_##SUF##_g##G(const T* x0, const T* f0,            \
+  extern "C" void solve_##SUF##_g##G##_s##S(const T* x0, const T* f0,     \
       const T* g0, const T* bnd, const T* misc, const T* cn, const T* cp,  \
       const T* cm, const T* obs, const T* P, const T* Q, const T* gridc,   \
       const double* wts, const double* lbp, int max_iter, int max_ls,      \
       int past, int adaptive, int B, int R, int H, int O, int Po,          \
       T* x_out, T* f_out, int* info) {                                      \
-    solve_all<T, G>(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q, gridc,   \
-                    wts, lbp, max_iter, max_ls, past, adaptive, B, R, H, O,\
-                    Po, x_out, f_out, info);                               \
+    solve_all<T, G, S>(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q,       \
+                       gridc, wts, lbp, max_iter, max_ls, past, adaptive,  \
+                       B, R, H, O, Po, x_out, f_out, info);                \
   }
-DEF(double, f64, 1)
-DEF(float, f32, 1)
-DEF(double, f64, 32)
-DEF(float, f32, 32)
+DEF(double, f64, 1, 1)
+DEF(float, f32, 1, 1)
+DEF(double, f64, 32, 1)
+DEF(float, f32, 32, 1)
+DEF(double, f64, 1, 2)
+DEF(double, f64, 32, 2)
+DEF(float, f32, 32, 2)
+DEF(double, f64, 1, 3)
+DEF(double, f64, 32, 3)
 """
 
 
@@ -237,14 +265,14 @@ def _host_eval(x, sc, kc, sw, sigma, dtype, G=1, dims=DIMS):
     """The objective with kernel A's team mapping, G members per lane
     (1: the Solo path; 32: the card's warp, its members run in turn)."""
     lib = _harness()
-    fn = getattr(lib, f"eval_{_SUF[dtype]}_g{G}")
+    fn = getattr(lib, f"eval_{_SUF[dtype]}_g{G}_s{dims.S}")
     c = lambda t: t.to(dtype).contiguous()
     xs, scs = c(x), [c(a) for a in sc]
-    P, Q, G = c(kc.P), c(kc.Q[0, :dims.N + 5]), c(kc.gridc)
+    P, Q, G = c(kc.P), c(kc.Q[:, :dims.N + 5]), c(kc.gridc)
     B = x.shape[1]
     f = torch.empty(B, dtype=dtype)
     g = torch.empty_like(xs)
-    w = _doubles(_cuda.weight_vector(sw, sigma))
+    w = _doubles(_cuda.weight_vector(sw, sigma, dims))
     fn(_ptr(xs), *(_ptr(a) for a in scs), _ptr(P), _ptr(Q), _ptr(G), w, B,
        kcost.r_rows(dims), dims.H, dims.O, dims.Po, _ptr(f), _ptr(g))
     return f, g
@@ -275,24 +303,24 @@ def test_hand_gradient_f32_within_card_tolerance():
 
 
 def _host_solve(x0, f0, g0, sc, kc, sw, sigma, p, max_iter, flags, dtype,
-                G=1):
+                G=1, dims=DIMS):
     """Kernel B's per-lane solve with G members per lane (as _host_eval),
     reading the half-planes from the lane-major copy kernel B makes."""
     lib = _harness()
-    fn = getattr(lib, f"solve_{_SUF[dtype]}_g{G}")
+    fn = getattr(lib, f"solve_{_SUF[dtype]}_g{G}_s{dims.S}")
     c = lambda t: t.to(dtype).contiguous()
     B = x0.shape[1]
     xs, fs, gs = c(x0), c(f0), c(g0)
     scs = [c(a) for a in sc]
-    P, Q, G = c(kc.P), c(kc.Q[0, :DIMS.N + 5]), c(kc.gridc)
+    P, Q, G = c(kc.P), c(kc.Q[:, :dims.N + 5]), c(kc.gridc)
     x = torch.empty_like(xs)
     f = torch.empty(B, dtype=dtype)
     info = torch.empty((3, B), dtype=torch.int32)
     fn(_ptr(xs), _ptr(fs), _ptr(gs), *(_ptr(a) for a in scs), _ptr(P),
-       _ptr(Q), _ptr(G), _doubles(_cuda.weight_vector(sw, sigma)),
+       _ptr(Q), _ptr(G), _doubles(_cuda.weight_vector(sw, sigma, dims)),
        _doubles(_cuda.lbfgs_vector(p, flags)), max_iter, p.max_linesearch,
-       p.past, int(flags.adaptive_step), B, kcost.r_rows(DIMS), DIMS.H,
-       DIMS.O, DIMS.Po, _ptr(x), _ptr(f), _ptr(info))
+       p.past, int(flags.adaptive_step), B, kcost.r_rows(dims), dims.H,
+       dims.O, dims.Po, _ptr(x), _ptr(f), _ptr(info))
     return x, f, info
 
 
@@ -424,7 +452,8 @@ def test_team_eval_8_obstacles_f32_as_close_as_float32_allows():
     collision: the 32-member mapping in float64 equals plain float64, and
     in float32 its gradient is no further from float64 than max(1e-3, 4x
     plain float32's own distance), the gate chip_smoke.py holds kernel A
-    to outside phase 2. Plain float32 itself is ~5e-4 off on that lane."""
+    to in phases 3 and 4. Plain float32 itself is ~5e-4 off on that
+    lane."""
     dims8 = dataclasses.replace(DIMS, O=8)
     cfg = PlannerConfig()
     w = weights_from_config(cfg.opt, torch.float64, device="cpu")
@@ -455,3 +484,120 @@ def test_team_eval_8_obstacles_f32_as_close_as_float32_allows():
     assert float(((f32.double() - f64).abs() / f64.abs()).max()) <= 1e-4
     assert rel_g(gp) > 1e-4                  # the lane float32 cannot hold
     assert rel_g(g32) <= max(1e-3, 4.0 * rel_g(gp)), (rel_g(g32), rel_g(gp))
+
+
+# ---------------------------------------------------------------------------
+# multi-gear classes: S = 2 and 3, per-segment piece counts (Dims.Ns)
+# ---------------------------------------------------------------------------
+
+MG = {"8-2": (8, 2), "4-2-2": (4, 2, 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_setup(name, appear=False, Bn=8):
+    """Bn lanes of scenarios.gear_scenario (S=2) or multi_gear_scenario
+    (S=3) for the class MG[name], inner waypoints jittered by a seeded
+    +-0.3 m; half of the lanes' x moved off x0 as in _setup. appear: one
+    obstacle (O=1) parked on the middle of segment 1 from t = 6 s (the end
+    of segment 0 at x0) and 100 m away before, so that only rows that add
+    the earlier segment's duration to their time meet it."""
+    ns = MG[name]
+    dims = Dims(S=len(ns), N=8, K=16, Kdes=32, H=4, O=1 if appear else 0,
+                Po=8, Ns=ns)
+    make = scenarios.gear_scenario if dims.S == 2 \
+        else scenarios.multi_gear_scenario
+    rng = np.random.default_rng(41)
+    lanes = []
+    for _ in range(Bn):
+        sc = make(dims)
+        inner = sc.init_inner + rng.uniform(-0.3, 0.3, sc.init_inner.shape)
+        inner[sc.init_inner == 0] = 0.0
+        sc = sc._replace(init_inner=inner)
+        if appear:
+            mid = 0.5 * (sc.ini_state[1, :, 0] + sc.fin_state[1, :, 0])
+            coef = np.zeros((1, 8, 6, 2))
+            for piece in range(8):
+                coef[0, piece, 0] = mid if piece >= 6 else (100.0, 100.0)
+            sc = sc._replace(obs_coef=coef, obs_dt=np.ones(1),
+                             obs_mask=np.ones(1, bool))
+        lanes.append(sc)
+    cfg = PlannerConfig()
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
+    batch = from_numpy(scenarios.stack_scenarios(lanes), Scenario,
+                       device="cpu", dtype=torch.float64)
+    _b, x0p, sc, kc, D = pallas_solve._prep(batch, w, dims, torch.float64,
+                                            "auto")
+    x = x0p.clone()
+    x[:D, Bn // 2:] += torch.from_numpy(
+        0.3 * np.random.default_rng(23).standard_normal((D, Bn - Bn // 2)))
+    return cfg, kcost.StaticW.build(w, cfg), sc, kc, x0p, x, D, dims
+
+
+@pytest.mark.parametrize("name", list(MG))
+def test_team_eval_multigear_f64_matches_autograd_and_solo(name):
+    """S = 2 (DP 40) and S = 3 (DP 56) with per-segment piece counts: the
+    32-member mapping (two coordinates per member past 32) equals autograd
+    (f rtol 1e-11, g 1e-9) and the one-member path to rounding."""
+    cfg, sw, sc, kc, x0p, x, D, dims = _mg_setup(name)
+    tuned = EngineFlags.tuned()
+    f_ref, g_ref = kcost.eval_fg(x, sc, kc, sw, dims, tuned)
+    f, g = _host_eval(x, sc, kc, sw, "auto", torch.float64, G=32, dims=dims)
+    np.testing.assert_allclose(f.numpy(), f_ref.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=1e-9,
+                               atol=1e-9)
+    assert not torch.any(g[D:])
+    f1, g1 = _host_eval(x, sc, kc, sw, "auto", torch.float64, G=1, dims=dims)
+    np.testing.assert_allclose(f.numpy(), f1.numpy(), rtol=1e-13)
+    np.testing.assert_allclose(g.numpy(), g1.numpy(), rtol=1e-11,
+                               atol=1e-11)
+
+
+def test_team_eval_s2_obstacle_needs_time_offset():
+    """An obstacle that exists only at absolute times past segment 0's
+    duration and sits on segment 1: the kernels' rows of segment 1 must
+    sample it at tt_1 + t. The 32-member mapping equals autograd with it,
+    in float64 and (to the card's tolerance) float32, and the obstacle
+    term is material on every lane at x0."""
+    cfg, sw, sc, kc, x0p, x, D, dims = _mg_setup("8-2", appear=True)
+    tuned = EngineFlags.tuned()
+    for xx in (x0p, x):
+        f_ref, g_ref = kcost.eval_fg(xx, sc, kc, sw, dims, tuned)
+        f, g = _host_eval(xx, sc, kc, sw, "auto", torch.float64, G=32,
+                          dims=dims)
+        np.testing.assert_allclose(f.numpy(), f_ref.numpy(), rtol=1e-11)
+        np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=1e-9,
+                                   atol=1e-9)
+    masked = sc.misc.clone()
+    masked[2 * dims.S + 2 * dims.O] = 0.0
+    f_off, _g = _host_eval(x0p, sc._replace(misc=masked), kc, sw, "auto",
+                           torch.float64, G=32, dims=dims)
+    f_on, _g = _host_eval(x0p, sc, kc, sw, "auto", torch.float64, G=32,
+                          dims=dims)
+    assert bool(((f_on - f_off) > 1e-2 * f_off.abs()).all()), (f_on, f_off)
+    f32, g32 = _host_eval(x, sc, kc, sw, "auto", torch.float32, G=32,
+                          dims=dims)
+    f_ref, g_ref = kcost.eval_fg(x, sc, kc, sw, dims, tuned)
+    assert float(((f32.double() - f_ref).abs() / f_ref.abs()).max()) <= 1e-4
+    gmax = g_ref.abs().amax(dim=0).clamp(min=1.0)
+    assert bool(((g32.double() - g_ref).abs().amax(dim=0)
+                 <= 1e-3 * gmax).all())
+
+
+@pytest.mark.parametrize("name", list(MG))
+def test_team_solve_multigear_f64_matches_round_loop_12_iterations(name):
+    """Kernel B's mapping on the multi-gear classes, tuned flags (sigma per
+    segment): the plain round loop's 12-iteration path exactly."""
+    flags = EngineFlags.tuned()
+    cfg, sw, sc, kc, x0p, _x, D, dims = _mg_setup(name)
+    p = cfg.opt.lbfgs
+    ref = pallas_solve._solve_rounds(x0p, sc, kc, sw, dims, p, 12, flags)
+    f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, dims, flags)
+    x, f, info = _host_solve(x0p, f0, g0, sc, kc, sw, "auto", p, 12, flags,
+                             torch.float64, G=32, dims=dims)
+    np.testing.assert_array_equal(info[0].numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(info[1].numpy(),
+                                  ref.k.clamp(max=12).numpy())
+    np.testing.assert_array_equal(info[2].numpy(), ref.n_evals.numpy())
+    np.testing.assert_allclose(f.numpy(), ref.fp.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(x.numpy(), ref.xp.numpy(), rtol=1e-9,
+                               atol=1e-10)

@@ -11,8 +11,8 @@
     looser gate.
   * Dispatch: make_solver(engine="fused") on CPU tensors runs the plain
     loop without launching a kernel; asking for CUDA without a card
-    raises; multi-gear classes raise NotImplementedError in the kcost
-    engines, and the bminor engine rejects Dims.Ns with ValueError.
+    raises; the kernels raise NotImplementedError past S = 3, and the
+    bminor engine rejects Dims.Ns with ValueError.
 
 The class has one moving obstacle (O=1): the JAX reference compiles the
 obstacle block once per obstacle (~12 s each on the CPU), and the
@@ -160,13 +160,23 @@ def test_cuda_without_a_card_raises():
 
 
 def test_multigear_raises_not_implemented():
+    """What still raises for multi-gear classes: the kernels past
+    S = 3 (NotImplementedError in the binding's checks; the plain round
+    loop takes any S), and the bminor engine with per-segment piece
+    classes (ValueError, as in JAX). make_solver takes S=2 and Dims.Ns on
+    "fused" and "rounds"."""
+    import types as pytypes
+
     cfg = config.PlannerConfig()
+    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: 3)
+    with pytest.raises(NotImplementedError):
+        _cuda._check_inputs(lib, None, None, None,
+                            Dims(S=4, N=8, K=16, Kdes=32, H=4, O=1, Po=8))
     for dims in (Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8),
+                 Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(8, 2)),
                  Dims(S=1, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(4,))):
-        with pytest.raises(NotImplementedError):
-            solver.make_solver(cfg, dims)
-        with pytest.raises(NotImplementedError):
-            pallas_solve.solve_batch_rounds(None, None, dims, cfg)
+        for engine in ("fused", "rounds"):
+            assert callable(solver.make_solver(cfg, dims, engine=engine))
     # the bminor engine rejects per-segment piece classes, as in JAX, and
     # takes uniform-N multi-segment classes
     with pytest.raises(ValueError):
