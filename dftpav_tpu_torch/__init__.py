@@ -2,11 +2,14 @@
 hand-written CUDA kernels for the NVIDIA H100.
 
 The port of `dftpav_tpu` (JAX on a TPU), which stays beside it as the
-reference. Two paths are ported: the batched whole-solve of the
-single-segment parking class (scenarios -> solver.make_solver(engine="fused")
--> ops.pallas_solve.solve_batch_fused -> kernels A and B in csrc/), and the
+reference. Ported: the batched whole-solve of the parking classes
+(scenarios -> solver.make_solver(engine="fused") ->
+ops.pallas_solve.solve_batch_fused -> kernels A and B in csrc/), the
 batch-minor engine (solver.make_solver(engine="bminor") -> ops.blbfgs over
-ops.bcost, whose corridor term is kernels K2 and K3 in csrc/).
+ops.bcost, whose corridor term is kernels K2 and K3 in csrc/), the front end
+(frontend, pipeline), and the replanning path above the solver: warm and
+gated replan streams (replan), the executing trajectory (container), and the
+bicycle plant and closed-loop planner server (sim).
 """
 
 from dftpav_tpu_torch import config as config

@@ -655,7 +655,7 @@ DFT_HD EvPre<T> ev_pre(T x_vt, T sigma, int ns, T sgl, const KW<T>& w) {
 template <class T, int N, int S>
 DFT_HD T rhs_entry(int i, const LaneData<T>& L, const EvPre<T>& e) {
   constexpr int C = N + 5;
-  const int d = i / C, c = i - d * C, ns = S == 1 ? N : L.ns;
+  const int d = i / C, c = i - d * C, ns = L.ns;
   const int seg = S == 1 ? 0 : L.s;
   if (c == 0) return L.bnd[d];
   if (c == 1) return L.bnd[2 + d] * e.dT;
@@ -866,13 +866,14 @@ template <class T, int N, int S>
 DFT_HD T tail_entry(int i, T gsum, const LaneData<T>& L, const EvPre<T>& e,
                     const KW<T>& w) {
   constexpr int C = N + 5;
-  const int d = i / C, c = i - d * C, ns = S == 1 ? N : L.ns;
+  const int d = i / C, c = i - d * C, ns = L.ns;
   const int seg = S == 1 ? 0 : L.s;
   T qt = T(0);                                   // (Q^T rhs_d)_c
   for (int k = 0; k < C; ++k) qt += L.Q[k * C + c] * T(L.rhs[d * C + k]);
   const T g_rhs = gsum + e.i5 * (L.qr[i] + qt);
-  if (c >= 3 && c < ns + 2)
-    L.g[2 * ((N - 1) * seg + c - 3) + d] = w.cost_scale * g_rhs;
+  if (c >= 3 && c < N + 2)        // a class's unused inner rows: zero
+    L.g[2 * ((N - 1) * seg + c - 3) + d] =
+        c < ns + 2 ? w.cost_scale * g_rhs : T(0);
   if (S > 1) {
     if (c == 0) L.gb[d] = g_rhs;
     if (c == 1) L.gb[2 + d] = g_rhs * e.dT;
@@ -915,7 +916,7 @@ DFT_HD T seg_boundary(int i, int s, const LaneData<T>& L, const KW<T>& w) {
 template <class T, int N, int S>
 DFT_HD void select_maps(LaneData<T>& L, const KW<T>& w, int s) {
   L.s = s;
-  L.ns = S == 1 ? N : pick(w.ns, s);
+  L.ns = pick(w.ns, s);
   L.Pd = pick(L.Pds, s);
   L.P = pick(L.Ps, s);
   L.Q = pick(L.Qs, s);
@@ -972,7 +973,7 @@ DFT_HD T lane_eval(const Team& tm, LaneData<T>& L, const KW<T>& w) {
                virtual_to_real(L.x[NIN + j] * pick(w.sig, j), w.mini_t);
     }
     const T sigma = pick(w.sig, s);
-    const int ns = S == 1 ? N : L.ns;
+    const int ns = L.ns;
     const EvPre<T> e = ev_pre(L.x[NIN + s], sigma, ns, L.sgl, w);
     T g_T = T(0), g_tt = T(0);
     if (on) {

@@ -206,8 +206,8 @@ struct Slice {
 };
 
 template <int S>
-__device__ Slice slice_of(const Args& a, unsigned char* sm, const Layout& l,
-                          int wid) {
+__device__ Slice slice_of(const Args& a, const KW<float>& kw,
+                          unsigned char* sm, const Layout& l, int wid) {
   unsigned char* w = sm + l.warp0 + (size_t)wid * l.slice;
   Slice s;
   s.bnd = (float*)(w + l.bnd);
@@ -219,7 +219,7 @@ __device__ Slice slice_of(const Args& a, unsigned char* sm, const Layout& l,
     // one segment: its constants and boundary rows, once (its rows of the
     // slabs are selected per lane)
     L.s = 0;
-    L.ns = kN;
+    L.ns = kw.ns[0];
     L.Pd = (const double*)(sm + l.pd[0]);
     L.P = (const float*)(sm + l.p[0]);
     L.Q = (const float*)(sm + l.q[0]);
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int wid = threadIdx.x >> 5;
   WarpTeam<DP> tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of<S>(a, sm, l, wid);
+  Slice s = slice_of<S>(a, w, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
   const int nw = blockDim.x >> 5;
   for (int lane = blockIdx.x * nw + wid; lane < a.B;
@@ -306,7 +306,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   const int wid = threadIdx.x >> 5;
   Team tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of<S>(a, sm, l, wid);
+  Slice s = slice_of<S>(a, w, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
   for (;;) {
     int lane = 0;

@@ -90,3 +90,78 @@ def subdivide(b: torch.Tensor, r: int) -> torch.Tensor:
     A = torch.as_tensor(subdivision_matrix(r), dtype=b.dtype, device=b.device)
     out = torch.einsum("imk,qk...->qim...", A, b)
     return out.reshape(b.shape[0] * r, *b.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# Trajectory evaluation (flatness maps). Reference: plan_utils::Piece
+# (poly_traj_utils.hpp:77-340). Tensors of any dtype, on any device.
+# ---------------------------------------------------------------------------
+
+def _tau_powers(tau: torch.Tensor, order: int) -> torch.Tensor:
+    """[..., 6] rows of d^order/dtau^order of (1, tau, ..., tau^5), the
+    powers built by iterated multiplication."""
+    k = np.arange(6)
+    coef = np.ones(6)
+    for r in range(order):
+        coef = coef * (k - r)
+    coef = coef * (k >= order)
+    expo = np.maximum(k - order, 0)
+    pows = [torch.ones_like(tau)]
+    for _ in range(5):
+        pows.append(pows[-1] * tau)
+    pows = torch.stack(pows, dim=-1)                     # [..., 6] = tau^k
+    return torch.as_tensor(coef, dtype=tau.dtype, device=tau.device) \
+        * pows[..., torch.as_tensor(expo, device=tau.device)]
+
+
+def eval_derivatives(b: torch.Tensor, dT, tau: torch.Tensor,
+                     orders=(0, 1, 2)) -> list:
+    """sigma^(r)(tau * dT) for each requested derivative order.
+
+    b: [..., 6, 2] normalized coefficients of the piece each tau falls in
+    (already indexed by the caller); tau [...] in [0, 1]; dT broadcasts
+    against tau. Returns tensors [..., 2]."""
+    scale = torch.as_tensor(dT, dtype=b.dtype, device=b.device).unsqueeze(-1)
+    out = []
+    for r in orders:
+        basis = _tau_powers(tau, r).to(b.dtype)
+        out.append(torch.einsum("...k,...kd->...d", basis, b) * scale ** (-r))
+    return out
+
+
+def flat_states(dsig: torch.Tensor, ddsig: torch.Tensor, singul, wheel_base,
+                eps: float = 1e-6):
+    """Flatness map: (sigma', sigma'') -> (theta, v, a_lon, kappa, steer)
+    (Piece::getAngle/getVel/getAcc/getCurv/getSteer,
+    poly_traj_utils.hpp:237-300); kappa and a_lon are 0 at near-zero
+    speed, as in the reference."""
+    sg = torch.as_tensor(singul, dtype=dsig.dtype, device=dsig.device)
+    vn = torch.linalg.norm(dsig, dim=-1)
+    theta = torch.atan2(sg * dsig[..., 1], sg * dsig[..., 0])
+    v = sg * vn
+    safe = vn >= eps
+    vn_s = torch.where(safe, vn, torch.ones_like(vn))
+    cross = dsig[..., 0] * ddsig[..., 1] - dsig[..., 1] * ddsig[..., 0]
+    dot = dsig[..., 0] * ddsig[..., 0] + dsig[..., 1] * ddsig[..., 1]
+    zero = torch.zeros_like(vn)
+    kappa = torch.where(safe, sg * cross / vn_s**3, zero)
+    a_lon = torch.where(safe, sg * dot / vn_s, zero)
+    steer = torch.atan(wheel_base * kappa)
+    return theta, v, a_lon, kappa, steer
+
+
+def eval_segment_states(b: torch.Tensor, dT, singul, wheel_base,
+                        t: torch.Tensor) -> dict:
+    """Full states of one segment trajectory b [N, 6, 2] (per-piece
+    duration dT) at times t [...] from the segment's start, clamped to it
+    (Trajectory::GetState, poly_traj_utils.hpp:378-406)."""
+    N = b.shape[0]
+    dT = torch.as_tensor(dT, dtype=b.dtype, device=b.device)
+    tc = torch.clamp(t, min=0.0)
+    tc = torch.minimum(tc, dT * N)
+    idx = torch.clamp((tc / dT).to(torch.int64), 0, N - 1)
+    tau = tc / dT - idx.to(b.dtype)
+    pos, dsig, ddsig = eval_derivatives(b[idx], dT, tau, orders=(0, 1, 2))
+    theta, v, a, kappa, steer = flat_states(dsig, ddsig, singul, wheel_base)
+    return dict(pos=pos, dsigma=dsig, ddsigma=ddsig, theta=theta, vel=v,
+                acc=a, curv=kappa, steer=steer)

@@ -19,7 +19,7 @@ class Dims:
     """Static problem dimensions.
 
     S: gear segments; N: pieces per segment; Ns: optional per-segment piece
-    counts (not yet ported); K / Kdes: interior and
+    counts (each divides N); K / Kdes: interior and
     first/last-piece constraint resolution; H: corridor half-planes;
     O: dynamic obstacles; Po: pieces per obstacle trajectory.
     """

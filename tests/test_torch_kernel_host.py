@@ -15,7 +15,10 @@ and runs them lane by lane:
     where plain float32 itself loses digits, the gradient no further from
     float64 than max(1e-3, 4x plain float32's distance);
   * float64 round loop vs the plain round loop, 12 iterations: statuses, k,
-    eval counts exact, fp rtol 1e-10, xp rtol 1e-9 / atol 1e-10.
+    eval counts exact, fp rtol 1e-10, xp rtol 1e-9 / atol 1e-10;
+  * the embedded form of uniform N = 2 / 4 classes (S = 1 and 2): the
+    objective against autograd with the unused rows exactly zero, and the
+    native class's 12-iteration paths.
 
 Each runs the per-lane code as a team (csrc/team.cuh) of one member (the
 Solo path) or of 32 members run in turn, the card's one warp per lane:
@@ -601,3 +604,74 @@ def test_team_solve_multigear_f64_matches_round_loop_12_iterations(name):
     np.testing.assert_allclose(f.numpy(), ref.fp.numpy(), rtol=1e-10)
     np.testing.assert_allclose(x.numpy(), ref.xp.numpy(), rtol=1e-9,
                                atol=1e-10)
+
+
+# uniform N = 2 / 4 classes in their N = 8 form (pallas_solve.embedded_class)
+# ---------------------------------------------------------------------------
+
+EMBED = {"S2-N2": dict(S=2, N=2, K=16, Kdes=32, H=4, O=0, Po=8),
+         "S1-N4": dict(S=1, N=4, K=16, Kdes=32, H=4, O=2, Po=8),
+         "S1-N2": dict(S=1, N=2, K=16, Kdes=32, H=4, O=0, Po=8)}
+
+
+@functools.lru_cache(maxsize=None)
+def _embed_setup(name):
+    """The class's fixture (gear_scenario at S = 2, batch_scenarios at
+    S = 1), 8 lanes, float64: the native and the embedded inputs."""
+    dims = Dims(**EMBED[name])
+    if dims.S == 2:
+        npb = scenarios.stack_scenarios(
+            [scenarios.gear_scenario(dims)] * 8)
+    else:
+        npb = scenarios.batch_scenarios(dims, 8, seed=5,
+                                        n_obstacles=dims.O)
+    cfg = PlannerConfig()
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
+    batch = from_numpy(npb, Scenario, device="cpu", dtype=torch.float64)
+    dims_e = pallas_solve.embedded_class(dims)
+    native = pallas_solve._prep(batch, w, dims, torch.float64, "auto")[1:4]
+    emb = pallas_solve._prep(pallas_solve.embed_scenario(batch, dims, dims_e),
+                             w, dims_e, torch.float64, "auto")[1:4]
+    return cfg, kcost.StaticW.build(w, cfg), dims, dims_e, native, emb
+
+
+@pytest.mark.parametrize("name", list(EMBED))
+def test_team_eval_embedded_f64_matches_autograd(name):
+    """Kernel A's mapping on the embedded form of a uniform N = 2 / 4 class
+    (32 members) equals autograd on it (f rtol 1e-11, g 1e-9), and the
+    rows the class does not use carry exactly zero gradient (at S = 1 they
+    are written, not left from an earlier lane)."""
+    cfg, sw, dims, dims_e, native, (x0p, sc, kc) = _embed_setup(name)
+    tuned = EngineFlags.tuned()
+    f_ref, g_ref = kcost.eval_fg(x0p, sc, kc, sw, dims_e, tuned)
+    f, g = _host_eval(x0p, sc, kc, sw, "auto", torch.float64, G=32,
+                      dims=dims_e)
+    np.testing.assert_allclose(f.numpy(), f_ref.numpy(), rtol=1e-11)
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=1e-9,
+                               atol=1e-9)
+    used = pallas_solve._move_x(torch.ones_like(native[0]), dims, dims_e)
+    assert not torch.any(g[used == 0])
+
+
+@pytest.mark.parametrize("name", list(EMBED))
+def test_team_solve_embedded_f64_matches_round_loop_12_iterations(name):
+    """Kernel B's mapping on the embedded form of a uniform N = 2 / 4
+    class (what solve_batch_fused launches for it) takes the plain round
+    loop's 12-iteration path on the native class: statuses, k and evals
+    exact, x mapped back within 1e-9."""
+    cfg, sw, dims, dims_e, (x0n, scn, kcn), (x0p, sc, kc) = \
+        _embed_setup(name)
+    flags = EngineFlags.tuned()
+    p = cfg.opt.lbfgs
+    ref = pallas_solve._solve_rounds(x0n, scn, kcn, sw, dims, p, 12, flags)
+    f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, dims_e, flags)
+    x, f, info = _host_solve(x0p, f0, g0, sc, kc, sw, "auto", p, 12, flags,
+                             torch.float64, G=32, dims=dims_e)
+    np.testing.assert_array_equal(info[0].numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(info[1].numpy(),
+                                  ref.k.clamp(max=12).numpy())
+    np.testing.assert_array_equal(info[2].numpy(), ref.n_evals.numpy())
+    np.testing.assert_allclose(f.numpy(), ref.fp.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(
+        pallas_solve._move_x(x, dims_e, dims).numpy(), ref.xp.numpy(),
+        rtol=1e-9, atol=1e-9)

@@ -12,7 +12,13 @@ Dims.Ns) against the JAX package, float64, B <= 8.
     minco.subdivision_matrix equal;
   * solve_with_retry on the rounds engine, 12 iterations, time scales
     (1.6, 0.7): the same success mask and costs to 1e-9;
-  * pipeline.quantized_counts equal on a grid of durations.
+  * pipeline.quantized_counts equal on a grid of durations;
+  * uniform N = 2 / 4 classes in the kernels' N = 8 form
+    (pallas_solve.embedded_class), port only: the plain objective on the
+    embedded class equals the native one (f 1e-12, used rows of g 1e-10,
+    the other rows exactly zero), the plain round loop takes the native
+    12-iteration paths (statuses, k, evals exact, x within 1e-9), and
+    which classes still raise NotImplementedError in the binding.
 
 Each JAX reference is computed once per module (plain XLA on the CPU).
 """
@@ -274,3 +280,102 @@ def test_quantized_counts_match_jax():
                 segs = (float(d0), float(durs[-1] - d0))
                 assert pipeline.quantized_counts(segs, N, pd) == \
                     jpipeline.quantized_counts(segs, N, pd)
+
+
+# uniform N = 2 / 4 classes in the kernels' N = 8 form
+# (pallas_solve.embedded_class), float64 on the plain versions
+# ---------------------------------------------------------------------------
+
+EMBED = {"S2-N2": dict(S=2, N=2, K=16, Kdes=32, H=4, O=0, Po=8),
+         "S1-N4": dict(S=1, N=4, K=16, Kdes=32, H=4, O=2, Po=8)}
+
+
+@functools.lru_cache(maxsize=None)
+def _embedded(name):
+    """The class's fixture (gear_scenario with jittered inner waypoints at
+    S = 2, batch_scenarios at S = 1), B lanes, native and embedded: the
+    plain objective's inputs of both, half of the lanes moved off x0."""
+    dims = Dims(**EMBED[name])
+    if dims.S == 2:
+        npb = gear_batch(dims, Bn=B, seed=9)
+    else:
+        npb = scenarios.batch_scenarios(dims, B, seed=9, n_obstacles=2)
+    cfg = config.PlannerConfig()
+    w = weights_from_config(cfg.opt, torch.float64, device="cpu")
+    batch = from_numpy(npb, Scenario, device="cpu", dtype=torch.float64)
+    dims_e = pallas_solve.embedded_class(dims)
+    out = {}
+    for d, b in ((dims, batch),
+                 (dims_e, pallas_solve.embed_scenario(batch, dims, dims_e))):
+        _b, x0p, sc, kc, D = pallas_solve._prep(b, w, d, torch.float64,
+                                                "auto")
+        out[d] = (x0p, sc, kc)
+    x = out[dims][0].clone()
+    x[:dims.dim, B // 2:] += torch.from_numpy(0.3 * np.random.default_rng(
+        29).standard_normal((dims.dim, B - B // 2)))
+    return dims, dims_e, x, out, kcost.StaticW.build(w, cfg)
+
+
+def test_embedded_class_routing():
+    """Which classes the kernels take in their N = 8 form, and what still
+    raises NotImplementedError in the binding's checks (the plain round
+    loop takes every class)."""
+    import types as pytypes
+
+    emb = pallas_solve.embedded_class
+    assert emb(Dims(**EMBED["S2-N2"])) == Dims(
+        **dict(EMBED["S2-N2"], N=8, Ns=(2, 2)))
+    assert emb(Dims(**EMBED["S1-N4"])).Ns == (4,)
+    for keep in (Dims(S=1, N=8), Dims(S=2, N=8, Ns=(8, 2)), Dims(S=1, N=3),
+                 Dims(S=1, N=16), Dims(S=2, N=4, Ns=(4, 2))):
+        assert emb(keep) is keep
+    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: 3,
+                                  dftpav_kernel_n=lambda: 8,
+                                  dftpav_kernel_dp=lambda S: 0)
+    from dftpav_tpu_torch.ops import _cuda
+    for dims in (Dims(S=1, N=3), Dims(S=1, N=16), Dims(S=4, N=2),
+                 Dims(S=4, N=4)):
+        with pytest.raises(NotImplementedError):
+            _cuda._check_inputs(lib, None, None, None, emb(dims))
+
+
+@pytest.mark.parametrize("name", list(EMBED))
+def test_embedded_objective_equals_native(name):
+    """The plain objective on the embedded class equals the native one: f
+    within 1e-12, the gradient's used rows within 1e-10 and every other
+    row exactly zero (the JAX package's tests/test_perseg.py:64-105 claim,
+    held for the port)."""
+    dims, dims_e, x, out, sw = _embedded(name)
+    tuned = config.EngineFlags.tuned()
+    f, g = kcost.eval_fg_plain(x, *out[dims][1:], sw, dims, tuned)
+    x_e = pallas_solve._move_x(x, dims, dims_e)
+    fe, ge = kcost.eval_fg_plain(x_e, *out[dims_e][1:], sw, dims_e, tuned)
+    np.testing.assert_allclose(fe.numpy(), f.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(pallas_solve._move_x(ge, dims_e, dims).numpy(),
+                               g.numpy(), rtol=1e-10, atol=1e-10)
+    used = pallas_solve._move_x(torch.ones_like(x), dims, dims_e) != 0
+    assert used.sum() == B * dims.dim
+    assert not torch.any(ge[~used])
+    # the embedded x0 is the native x0 in the embedded layout
+    assert torch.equal(out[dims_e][0],
+                       pallas_solve._move_x(out[dims][0], dims, dims_e))
+
+
+@pytest.mark.parametrize("name", list(EMBED))
+def test_embedded_round_loop_equals_native_12_iterations(name):
+    """The plain round loop on the embedded class takes the native class's
+    12-iteration paths: statuses, k and evals exact, x mapped back within
+    1e-9."""
+    dims, dims_e, _x, out, sw = _embedded(name)
+    tuned = config.EngineFlags.tuned()
+    p = config.PlannerConfig().opt.lbfgs
+    ref = pallas_solve._solve_rounds(*out[dims], sw, dims, p, 12, tuned)
+    emb = pallas_solve._solve_rounds(*out[dims_e], sw, dims_e, p, 12, tuned)
+    for field in ("status", "n_evals"):
+        np.testing.assert_array_equal(getattr(emb, field).numpy(),
+                                      getattr(ref, field).numpy())
+    np.testing.assert_array_equal(emb.k.clamp(max=12).numpy(),
+                                  ref.k.clamp(max=12).numpy())
+    np.testing.assert_allclose(
+        pallas_solve._move_x(emb.xp, dims_e, dims).numpy(), ref.xp.numpy(),
+        rtol=1e-9, atol=1e-9)
