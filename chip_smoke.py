@@ -56,8 +56,9 @@ non-zero and prints no final result):
      on the B=8192 operands;
   6. the second path, solver.make_solver(engine="bminor") with the
      default corridor backend ("auto", which must reach K2/K3 on its own)
-     on the first 2048 lanes of the fixture, 150 iterations (a 5-iteration warm-up at
-     B=256, then one run timed with CUDA events), beside the same call
+     on the first 2048 lanes of the fixture, 150 iterations (a
+     5-iteration warm-up at B=256, then one run timed with CUDA events),
+     beside the same call
      with "xla" (no kernel on that path) on the first 1024 lanes; gates
      success >= 0.99, cost p50 of those lanes within 2% of the "xla"
      run's, both corridor kernels launched, finite coefficients of shape
@@ -78,8 +79,9 @@ non-zero and prints no final result):
      float64 (plain float32 loses whole digits at the lots' ~50 m
      coordinates): kernel A per lane |df|/|f| <= 1e-4 and max|dg| <= 1e-3
      * max(1, max|g|); kernel B against the plain round loop (run from x0
-     and from three copies of x0 perturbed by 1e-7, in 7 processes at once
-     after the timed runs): success within 0.02 and cost p50 within 2%
+     and from three copies of x0 perturbed by 1e-7, batched, in 7
+     processes at once after the timed runs): success within 0.02 and
+     cost p50 within 2%
      beyond the float64 loop's own largest move under those perturbations
      (the lanes' outcomes are chaotic: a few plans changing minimum move a
      median of 40-128 plans by percents), 12-iteration paths equal on
@@ -87,8 +89,9 @@ non-zero and prints no final result):
      starting at ini_state[0] and ending at fin_state[S-1] to 1e-3 m;
      aggregated as the bench does (rate, ladder and direct success over
      the covered share), ladder success >= 0.99; then the S=3 class
-     (4, 2, 2) on multi_gear_scenario, B=256, under the same gates; ptxas
-     and machine instructions of every S instantiation.
+     (4, 2, 2) and the park demo's S=4 classes (N = 8, and N = 2 in its
+     N = 8 form) on jittered multi_gear_scenario lanes, B=256, under the
+     same gates; ptxas and machine instructions of every S instantiation.
   8. the replanning path (the JAX bench's warm, gated and latency lines,
      bench.py:213-284, and tests/test_sim.py's closed loop), each part its
      own line: (1) replan.make_replanner (dt_shift 0.1, 50 iterations) on
@@ -118,6 +121,27 @@ non-zero and prints no final result):
      float64: the two-gear class's median moves by 4% under such a
      perturbation). Kernels A and B's launches are counted per path over
      its own drive.
+  9. the park demo (examples/park_demo_torch.py run(), no rendering) on
+     the parking_lot (2 movers) and reverse_park (no movers) playgrounds,
+     40 s of sim each, the demo's S = 4 classes of N = 2 / 4 / 8 through
+     sim.PlannerServer (kernels A and B, the retry ladder on a failed
+     solve) and sim.SimLoop: per playground final error, replans,
+     failures, classes used, solve and front-end ms p50 / max, wall
+     seconds, beside JAX's own run of examples/park_demo.py on the CPU;
+     gates final error < 0.2 m and failures <= replans // 2
+     (tests/test_sim.py:102-103), at least one successful S = 4 replan,
+     kernels A and B launched once per solver call.
+ 10. the vmap engine (make_solver(engine="vmap"): cost.total_cost by
+     autograd, lbfgs.minimize; plain PyTorch, no kernel) on CUDA tensors,
+     the first 256 lanes of the bench fixture and three copies of them
+     whose initial guess moves by 1e-7, in one call, 150 iterations:
+     success >= 0.99 and cost p50 within 2% of the bminor engine's on the
+     same lanes (phase 6's run; the same objective and L-BFGS, batched)
+     beyond the vmap engine's own move on the copies, kernel B's
+     (make_solver's fused engine, default flags) beside it; and 4 lanes in
+     float64, 12
+     iterations, on the card against the CPU: statuses and iterations
+     equal, coefficients, dT and cost within 1e-9.
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -135,8 +159,9 @@ this package's (package, other, other, package), on the fixture and on
 variants of its inputs that each remove one cost: no_corridor (H = 0),
 no_obstacles (O = 0), replicated8 (B / 8 scenarios, each on 8 consecutive
 lanes, so lanes that share a warp or a block take the same path), with
-that build's ptxas registers, spills and machine instructions; then
-traces one launch of kernels A and B with torch.profiler.
+whether the two builds' outputs are bitwise equal and that build's ptxas
+registers, spills and machine instructions; then traces one launch of
+kernels A and B with torch.profiler.
 """
 
 from __future__ import annotations
@@ -358,14 +383,24 @@ MG_COUNTS = {(8, 2): 384, (4, 2): 128, (2, 8): 117, (2, 2): 52, (4, 8): 28,
              (8, 8): 31, (2, 4): 40, (4, 4): 7, (8, 4): 13}
 # kernel B against the plain round loop in float64, per class: success and
 # cost p50 within 0.02 and 2% beyond the float64 loop's own spread when its
-# x0 moves by 1e-7 (relative, seeded; MG_PERTURB runs), and 12-iteration
-# paths equal on at least MG_SHARE12 of the lanes (0.55-1.0 measured)
+# x0 moves by 1e-7 (relative, seeded; MG_PERTURB runs, batched with the
+# one from x0), and 12-iteration paths equal on at least MG_SHARE12 of the
+# lanes (0.55-1.0 measured)
 MG_PERTURB, MG_SHARE12 = (1, 2, 3), 0.5
+# the park demo's S = 4 classes (examples/park_demo.py:37-38) that phase 7
+# also gates, keyed by their piece counts: N = 8, and N = 2, which the
+# kernels take in its N = 8 form (pallas_solve.embedded_class); lanes of
+# scenarios.multi_gear_scenario at S = 4 jittered as the S = 3 class's
+S4_CLASSES = ((8, 8, 8, 8), (2, 2, 2, 2))
 
 
 def _mg_dims(ns):
+    """The class of phase 7's key ns: a per-segment piece class, or for
+    the S = 4 keys (S4_CLASSES) the park demo's uniform class."""
     from dftpav_tpu_torch.types import Dims
 
+    if ns in S4_CLASSES:
+        return Dims(S=4, N=ns[0], K=16, Kdes=32, H=4, O=2, Po=8)
     return Dims(S=len(ns), N=8, K=16, Kdes=32, H=4, O=2, Po=8, Ns=tuple(ns))
 
 
@@ -389,13 +424,15 @@ def _mg_pool_worker(conn, n_plans, seed):
         conn.close()
 
 
-def _plain_worker(dims, npb, seed, iters, dtype="float64"):
+def _plain_worker(dims, npb, seeds, iters, dtype="float64"):
     """Child process: the plain round loop in `dtype` on the card for the
     lanes of class dims (numpy Scenario npb), prepared in float32 as the
-    kernels get them; seed None: from x0, for `iters` and for 12
-    iterations; else from x0 * (1 + 1e-7 N(0, 1)) drawn with that seed, for
-    `iters`. Returns numpy (status, fp, k, n_evals) per run and the seconds
-    of the long one."""
+    kernels get them, from x0 (seed None) and from x0 * (1 + 1e-7 N(0, 1))
+    drawn with each other seed, all of them one batch (lanes are
+    independent, and the loop's time is its host's, nearly independent of
+    the batch), for `iters`; and from x0 alone for 12 iterations. Returns
+    {seed: {n: numpy (status, fp, k, n_evals)}} and the seconds of the long
+    run."""
     from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
     from dftpav_tpu_torch.ops import kcost, pallas_solve
     from dftpav_tpu_torch.types import Scenario, from_numpy, \
@@ -412,21 +449,33 @@ def _plain_worker(dims, npb, seed, iters, dtype="float64"):
     dt = getattr(torch, dtype)
     sc = kcost.KScenario(*(a.to(dt) for a in sc))
     kc = kcost.KConsts(*(a.to(dt) for a in kc))
-    if seed is not None:
-        noise = np.random.default_rng(seed).standard_normal(tuple(x0.shape))
-        x0 = x0.double() * (1.0 + 1e-7 * torch.from_numpy(noise).to(
-            x0.device))
-    x0 = x0.to(dt)
-    out = {}
-    for n in (iters,) if seed is not None else (iters, 12):
+    B = x0.shape[1]
+    xs = []
+    for seed in seeds:
+        x = x0.double()
+        if seed is not None:
+            noise = np.random.default_rng(seed).standard_normal(
+                tuple(x0.shape))
+            x = x * (1.0 + 1e-7 * torch.from_numpy(noise).to(x0.device))
+        xs.append(x.to(dt))
+    n_runs = len(seeds)
+    runs = [(torch.cat(xs, dim=1),
+             kcost.KScenario(*(torch.cat([a] * n_runs, dim=-1) for a in sc)),
+             iters, seeds), (x0.to(dt), sc, 12, (None,))]
+    out = {seed: {} for seed in seeds}
+    for x, sc_n, n, keys in runs:
         t0 = time.perf_counter()
-        r = pallas_solve._solve_rounds(x0, sc, kc, sw, dims, cfg.opt.lbfgs,
+        r = pallas_solve._solve_rounds(x, sc_n, kc, sw, dims, cfg.opt.lbfgs,
                                        n, tuned)
         torch.cuda.synchronize()
-        out[n] = {"status": r.status.cpu().numpy(), "fp": r.fp.cpu().numpy(),
-                  "k": r.k.clamp(max=n).cpu().numpy(),
-                  "n_evals": r.n_evals.cpu().numpy(),
-                  "seconds": time.perf_counter() - t0}
+        sec = time.perf_counter() - t0
+        for i, seed in enumerate(keys):
+            lanes = slice(i * B, (i + 1) * B)
+            out[seed][n] = {"status": r.status[lanes].cpu().numpy(),
+                            "fp": r.fp[lanes].cpu().numpy(),
+                            "k": r.k[lanes].clamp(max=n).cpu().numpy(),
+                            "n_evals": r.n_evals[lanes].cpu().numpy(),
+                            "seconds": sec, "lanes": int(x.shape[1])}
     return out
 
 
@@ -795,16 +844,15 @@ def _replan_phase(cfg, dims, tuned, w, big, res_main, B_chk, ns_big, npb_big,
         return (float(((st >= 0) & (cost < cfg.opt.reject_cost)).mean()),
                 float(np.median(cost)))
 
-    workers = ctx.Pool(processes=len(emb) * (1 + len(MG_PERTURB)))
+    workers = ctx.Pool(processes=len(emb))
     try:
-        jobs = {(name, seed): workers.apply_async(
-            _plain_worker, (dims_n, npb, seed, iters, "float32"))
-            for name, (dims_n, npb) in emb.items()
-            for seed in (None, *MG_PERTURB)}
+        jobs = {name: workers.apply_async(
+            _plain_worker, (dims_n, npb, (None, *MG_PERTURB), iters,
+                            "float32"))
+            for name, (dims_n, npb) in emb.items()}
         for name, (dims_n, _npb) in emb.items():
             bn, rk, ms_k, info12, dims_e = runs[name]
-            p32 = {sd: jobs[(name, sd)].get(timeout=900)
-                   for sd in (None, *MG_PERTURB)}
+            p32 = jobs[name].get(timeout=900)
             ref12 = np.stack([p32[None][12][k]
                               for k in ("status", "k", "n_evals")])
             share = float((info12.cpu().numpy() == ref12).all(axis=0).mean())
@@ -834,6 +882,7 @@ def _replan_phase(cfg, dims, tuned, w, big, res_main, B_chk, ns_big, npb_big,
                   spread_success=spread_s, spread_cost_p50=spread_c,
                   share_12iter_status_k_evals_equal=share,
                   plain_s=p32[None][iters]["seconds"],
+                  plain_lanes=p32[None][iters]["lanes"],
                   grid=grid_of(dims_e, B_chk),
                   tol="vs the plain native loop (float32): |dsuccess|<="
                       "0.005+spread, |dcost p50|<=(2%+spread) (spread: its "
@@ -846,6 +895,149 @@ def _replan_phase(cfg, dims, tuned, w, big, res_main, B_chk, ns_big, npb_big,
         workers.terminate()
         workers.join()
     return paths
+
+
+# ---- 9. the park demo (examples/park_demo_torch.py) on the card: its
+# playgrounds without a lane net, the demo's 40 s, and JAX's own results
+# from `python examples/park_demo.py <playground>` on the CPU (its bminor
+# engine), for reference; the gates are tests/test_sim.py:102-103's, which
+# JAX meets on both
+PARK_PLAYGROUNDS, PARK_SIM_S = ("parking_lot", "reverse_park"), 40.0
+PARK_JAX = {"parking_lot": {"final_error_m": 0.027, "replans": 13,
+                            "failures": 0},
+            "reverse_park": {"final_error_m": 0.199, "replans": 17,
+                             "failures": 2}}
+
+
+def _park_phase():
+    """Phase 9 (module docstring): one line per playground, raises on a
+    failed gate. Returns [kernel A launches, kernel B launches] over the
+    demo's runs (the counts set to 0 just before each and read just
+    after)."""
+    from examples import park_demo_torch
+    from dftpav_tpu_torch.ops import kcost, pallas_solve
+
+    total = [0, 0]
+    for name in PARK_PLAYGROUNDS:
+        kcost.eval_fg.launches = 0
+        pallas_solve.solve_batch_fused.launches = 0
+        _pg, srv, _log, summ = park_demo_torch.run(name, PARK_SIM_S, "cuda")
+        launches = [kcost.eval_fg.launches,
+                    pallas_solve.solve_batch_fused.launches]
+        total = [a + b for a, b in zip(total, launches)]
+        solved = [r for r in srv.replans if r["dims"] is not None]
+        solve_ms = np.array([r["solve_s"] * 1e3 for r in solved])
+        fe_ms = np.array([r["frontend_s"] * 1e3 for r in srv.replans])
+        classes = {}
+        for r in solved:
+            key = f"S{r['dims'].S}-N{r['dims'].N}"
+            classes[key] = classes.get(key, 0) + 1
+        s4_ok = sum(1 for r in solved if r["dims"].S == 4 and r["ok"])
+        n_solves = sum(r["solves"] for r in srv.replans)
+        ok = (summ["final_error_m"] < 0.2
+              and srv.n_failures <= srv.n_replans // 2 and s4_ok >= 1
+              and launches[0] == n_solves and launches[1] == n_solves)
+        _emit("park_demo", playground=name, sim_s=summ["sim_s"],
+              wall_s=summ["wall_s"], final_error_m=summ["final_error_m"],
+              replans=srv.n_replans, failures=srv.n_failures,
+              solver_calls=n_solves,
+              retried=sum(1 for r in srv.replans if r["solves"] > 1),
+              classes=classes, s4_replans_ok_through_kernels=s4_ok,
+              solve_ms_p50_max=[float(np.median(solve_ms)),
+                                float(solve_ms.max())] if len(solve_ms)
+              else None,
+              frontend_ms_p50_max=[float(np.median(fe_ms)),
+                                   float(fe_ms.max())],
+              launches=launches,
+              jax_reference=dict(PARK_JAX[name], source=(
+                  "python examples/park_demo.py on the CPU (JAX, bminor "
+                  "engine); not the port's")),
+              tol="final error < 0.2 m, failures <= replans // 2, >= 1 "
+                  "successful S = 4 replan, kernels A and B launched once "
+                  "per solver call",
+              ok=bool(ok))
+        if not ok:
+            raise AssertionError(f"park demo on {name} failed its gates")
+    return total
+
+
+def _vmap_phase(cfg, w, batch, res_bm, kernel_solve, B_v=256, B_64=4,
+                iters=150):
+    """Phase 10 (module docstring): the vmap engine on CUDA tensors beside
+    the bminor engine (res_bm, phase 6's result on lanes that begin with
+    the same ones) and kernel B (kernel_solve, make_solver's fused engine)
+    on the same lanes, and a float64 12-iteration path on the card against
+    the CPU."""
+    from dftpav_tpu_torch import solver
+    from dftpav_tpu_torch.ops import pallas_solve
+    from dftpav_tpu_torch.types import Dims, Scenario, weights_from_config
+
+    dims = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
+    lanes = Scenario(*(a[:B_v] for a in batch))
+    # the lanes, then copies whose initial guess (waypoints, durations)
+    # moves by 1e-7 (relative, seeded), solved in one call: at B = 256 the
+    # costs near the median sit ~1% apart, and the same engine's median
+    # moves by 1-3% between the card and the CPU (PERF.md section 6), so
+    # the gate adds the engine's own move under such a perturbation, as
+    # phase 7 does
+    copies = [lanes]
+    for seed in MG_PERTURB:
+        rng = np.random.default_rng(seed)
+
+        def nudge(a):
+            noise = torch.from_numpy(rng.standard_normal(tuple(a.shape)))
+            return (a.double() * (1.0 + 1e-7 * noise.to(a.device))).to(
+                a.dtype)
+        copies.append(lanes._replace(init_inner=nudge(lanes.init_inner),
+                                     init_T=nudge(lanes.init_T)))
+    every = Scenario(*(torch.cat(parts) for parts in zip(*copies)))
+    launches0 = pallas_solve.solve_batch_fused.launches
+    t0 = time.perf_counter()
+    res_v = solver.make_solver(cfg, dims, iters, engine="vmap")(every, w)
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - t0
+    no_kernel = pallas_solve.solve_batch_fused.launches == launches0
+    res_k = kernel_solve(lanes, w)
+    s_v = res_v.success[:B_v].float().mean().item()
+    med = lambda c: float(np.median(c[:B_v].cpu().numpy()))
+    c_v, c_bm, c_k = med(res_v.cost), med(res_bm.cost), med(res_k.cost)
+    spread = max(abs(med(res_v.cost[i * B_v:]) - c_v)
+                 for i in range(1, len(copies))) / abs(c_v)
+    # float64, 12 iterations: the card against the CPU
+    l64 = Scenario(*(a[:B_64].double() if a.is_floating_point()
+                     else a[:B_64] for a in batch))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        w64 = weights_from_config(cfg.opt, torch.float64, device=dev)
+        b64 = Scenario(*(a.to(dev) for a in l64))
+        out[dev] = [a.cpu() for a in solver.make_solver(
+            cfg, dims, 12, engine="vmap")(b64, w64)]
+    g, c = out["cuda"], out["cpu"]
+    same = (torch.equal(g[4], c[4]) and torch.equal(g[3], c[3]))
+    rel = max(((u - v).abs() / v.abs().clamp(min=1.0)).max().item()
+              for u, v in ((g[0], c[0]), (g[1], c[1]), (g[2], c[2])))
+    ok = (s_v >= 0.99 and abs(c_v - c_bm) <= (0.02 + spread) * abs(c_bm)
+          and same
+          and rel <= 1e-9 and no_kernel
+          and bool(torch.isfinite(res_v.coeffs).all()))
+    _emit("vmap_engine", B=B_v, iters=iters, lanes_solved=len(copies) * B_v,
+          wall_s=wall_v, success=s_v, cost_p50=c_v,
+          spread_cost_p50_vmap=spread, cost_p50_bminor=c_bm,
+          cost_p50_kernel_b=c_k,
+          iters_p50=_pct(res_v.n_iters.float(), 50),
+          success_kernel_b=res_k.success.float().mean().item(),
+          f64_12iter_B=B_64, f64_12iter_status_iters_equal=bool(same),
+          f64_12iter_max_rel_err=rel, launched_no_kernel=bool(no_kernel),
+          tol="success >= 0.99, cost p50 within 2% of the bminor engine's "
+              "(the same objective and L-BFGS) on the same lanes beyond the "
+              "vmap engine's own largest move with its initial guess "
+              "perturbed by 1e-7 (3 seeds), float64 12 iterations on the "
+              "card vs the CPU: "
+              "statuses and iterations equal, coefficients, dT and cost "
+              "within 1e-9 (relative), no kernel launched",
+          ok=bool(ok))
+    if not ok:
+        raise AssertionError("vmap engine failed its gates")
 
 
 def main(argv=None) -> int:
@@ -1029,8 +1221,12 @@ def _run(args, pool_rx, ctx) -> int:
 
     res_k = pallas_solve.solve_batch_fused(batch, w, dims, cfg, iters,
                                            flags=tuned)
-    res_p = pallas_solve.solve_batch_rounds(batch, w, dims, cfg, iters,
-                                            flags=tuned)
+    keep_p = {}
+    # timed once: phase 4 reports it beside the main path
+    plain_wall_ms = _cuda_ms(lambda: keep_p.__setitem__(
+        "r", pallas_solve.solve_batch_rounds(batch, w, dims, cfg, iters,
+                                             flags=tuned)), reps=1, warmup=0)
+    res_p = keep_p["r"]
     s_k = res_k.success.float().mean().item()
     s_p = res_p.success.float().mean().item()
     c_k = res_k.cost.median().item()
@@ -1206,10 +1402,7 @@ def _run(args, pool_rx, ctx) -> int:
 
     times_main = kernel_times(big)
     # the plain round loop is host bound (~1,000 small launches a round):
-    # timed once, at the check batch
-    plain_wall_ms = _cuda_ms(lambda: solver.make_solver(
-        cfg, dims, iters, engine="rounds", flags=tuned)(batch, w),
-        reps=1, warmup=0)
+    # phase 3's call at the check batch, timed once
     ok_main = (succ >= 0.99 and shapes_ok and launches["eval_fg"] > 0
                and launches["solve_fused"] > 0)
     _emit("main_path", B=B_main, iters=iters, wall_ms=wall_ms,
@@ -1260,7 +1453,7 @@ def _run(args, pool_rx, ctx) -> int:
             f0v, g0v = _cuda.launch_eval_fg(x0v, scv, kcv, sw, dims_v, "auto")
             ms_a = _cuda_ms(lambda: _cuda.launch_eval_fg(
                 x0v, scv, kcv, sw, dims_v, "auto"), reps=20)
-            runs = []
+            runs, outs = [], {}
             for name, solve_b in turns:
                 keep = {}
 
@@ -1269,6 +1462,7 @@ def _run(args, pool_rx, ctx) -> int:
                                         "auto", p, iters, tuned)
 
                 ms = _cuda_ms(run, reps=2)
+                outs.setdefault(name, keep["r"])
                 _x, f_v, info_v = keep["r"]
                 evals = info_v[2].float() - 1.0      # kernel A made the first
                 runs.append({
@@ -1280,7 +1474,10 @@ def _run(args, pool_rx, ctx) -> int:
                                           for q in (50, 90, 99)],
                     "success_cost_p50": success_cost(info_v[0], f_v)})
             _emit("kernel_B_ab", variant=variant, B=B_main, ms_a=ms_a,
-                  ms_per_1e6_lane_evals_a=ms_a / (B_main / 1e6), runs=runs)
+                  ms_per_1e6_lane_evals_a=ms_a / (B_main / 1e6), runs=runs,
+                  outputs_bitwise_equal=all(
+                      torch.equal(u, v) for u, v in zip(outs["package"],
+                                                        outs["parent"])))
 
         from torch.profiler import ProfilerActivity, profile
 
@@ -1479,7 +1676,7 @@ def _run(args, pool_rx, ctx) -> int:
     launches_pen = {"corridor_fwd": pp.corridor_fwd.launches,
                     "corridor_bwd": pp.corridor_bwd.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    res_p = out["bm"]
+    res_p = res_bm = out["bm"]
     # the same call with the plain corridor form, on the check batch (the
     # first B_chk lanes of the same fixture; lanes solve independently)
     solve_x = solver.make_solver(cfg_x, dims, iters, engine="bminor")
@@ -1547,12 +1744,15 @@ def _run(args, pool_rx, ctx) -> int:
         raise AssertionError("multigear pool: no class with 8 plans")
     mg_np[(4, 2, 2)] = _jittered(scenarios.multi_gear_scenario,
                                  _mg_dims((4, 2, 2)), MG_B, 13)
+    for ns in S4_CLASSES:
+        mg_np[ns] = _jittered(scenarios.multi_gear_scenario, _mg_dims(ns),
+                              MG_B, 13)
 
     def mg_path(dims_m, batch_m):
         """The class through make_solver(engine="fused") (one warm-up, best
         of 3) and solve_with_retry (timed once), the kernels' launches
         counted over both, and the output gate: finite coefficients of
-        shape (B, S, 8, 6, 2) starting at ini_state[0] and ending at
+        shape (B, S, N, 6, 2) starting at ini_state[0] and ending at
         fin_state[S-1] to 1e-3 m. (numbers, ok)"""
         solve_m = solver.make_solver(cfg, dims_m, max_iterations=iters,
                                      engine="fused", flags=tuned)
@@ -1574,7 +1774,7 @@ def _run(args, pool_rx, ctx) -> int:
         head_err = (c[:, 0, 0, 0] - batch_m.ini_state[:, 0, :, 0]).abs().max()
         tail_err = (c[:, -1, -1].sum(dim=1)
                     - batch_m.fin_state[:, -1, :, 0]).abs().max()
-        ok = (tuple(c.shape) == (Bm, S_m, 8, 6, 2)
+        ok = (tuple(c.shape) == (Bm, S_m, dims_m.N, 6, 2)
               and bool(torch.isfinite(c).all())
               and bool(torch.isfinite(d.coeffs).all())
               and max(head_err.item(), tail_err.item()) <= 1e-3
@@ -1598,7 +1798,12 @@ def _run(args, pool_rx, ctx) -> int:
         max|dg| <= 1e-3 * max(1, max|g|); plain float32 loses whole digits
         at the lots' ~50 m coordinates, so it is timed but not compared),
         the bounds, occupancy, and kernel B's outputs at 150 and 12
-        iterations. (numbers, outputs, ok)"""
+        iterations. A uniform N = 2 / 4 class runs in its N = 8 form, as
+        solve_batch_fused launches it. (numbers, outputs, ok)"""
+        if dims_m.N != 8:
+            dims_e = pallas_solve.embedded_class(dims_m)
+            batch_m = pallas_solve.embed_scenario(batch_m, dims_m, dims_e)
+            dims_m = dims_e
         _b, x0m, scm, kcm, _D = pallas_solve._prep(batch_m, w, dims_m,
                                                    torch.float32, "auto")
         fA, gA = _cuda.launch_eval_fg(x0m, scm, kcm, sw, dims_m, "auto")
@@ -1649,6 +1854,9 @@ def _run(args, pool_rx, ctx) -> int:
             t[f"resident_warps_per_sm_{k.lower()}"] = \
                 info["resident_warps_per_sm"]
             t[f"smem_bytes_{k.lower()}"] = info["smem_bytes"]
+            # cudaFuncGetAttributes: registers, local memory per thread
+            t[f"registers_{k.lower()}"] = info["registers"]
+            t[f"local_bytes_{k.lower()}"] = info["local_bytes"]
         outs = {"status": infob[0].cpu().numpy(), "fp": fb.cpu().numpy(),
                 "k12": k12.cpu().numpy()}
         return t, outs, ok_a and torch.isfinite(xb).all().item()
@@ -1673,11 +1881,15 @@ def _run(args, pool_rx, ctx) -> int:
     plain = {}
     workers = ctx.Pool(processes=7)
     try:
-        jobs = {(ns, seed): workers.apply_async(
-            _plain_worker, (_mg_dims(ns), npb, seed, iters))
-            for ns, npb in mg_np.items() for seed in (None, *MG_PERTURB)}
-        for key, job in jobs.items():
-            plain[key] = job.get(timeout=900)
+        # one job per class, its runs batched; the longest loops (most
+        # segments) first, so that no long one starts last
+        jobs = {ns: workers.apply_async(
+            _plain_worker, (_mg_dims(ns), mg_np[ns], (None, *MG_PERTURB),
+                            iters))
+            for ns in sorted(mg_np, key=lambda ns: -len(ns))}
+        for ns, job in jobs.items():
+            for seed, r in job.get(timeout=900).items():
+                plain[(ns, seed)] = r
     finally:
         workers.terminate()
         workers.join()
@@ -1704,7 +1916,8 @@ def _run(args, pool_rx, ctx) -> int:
                    success_cost_p50_plain_f64_perturbed=pert,
                    spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
                    share_12iter_vs_f64=share_k,
-                   plain_ms_b_f64=p64[iters]["seconds"] * 1e3)
+                   plain_ms_b_f64=p64[iters]["seconds"] * 1e3,
+                   plain_lanes_b_f64=p64[iters]["lanes"])
         ok = ok_path and ok_k and ok_s and ok_c and ok_12
         mg_launches[0] += t_path["launches"]["eval_fg"]
         mg_launches[1] += t_path["launches"]["solve_fused"]
@@ -1718,6 +1931,10 @@ def _run(args, pool_rx, ctx) -> int:
         if len(ns) == 3:
             _emit("multigear_s3", Ns=list(ns), B=MG_B, **t_path, kernels=t_k,
                   tol=tol, ok=bool(ok))
+        elif len(ns) == 4:
+            _emit("multigear_s4", Ns=list(ns),
+                  dims=dataclasses.asdict(_mg_dims(ns)), B=MG_B, **t_path,
+                  kernels=t_k, tol=tol, ok=bool(ok))
         else:
             share = pool[ns].ini_state.shape[0] / max(n_s2, 1)
             per_class[ns] = dict(t_path, share=share)
@@ -1764,6 +1981,13 @@ def _run(args, pool_rx, ctx) -> int:
                  key=lambda ns: pool[ns].ini_state.shape[0])
     rp_paths = _replan_phase(cfg, dims, tuned, w, big, res, B_chk, ns_big,
                              mg_np[ns_big], iters, ctx)
+
+    # ---- 9. the park demo: S = 4 classes through the server ----
+    rp_paths["park_demo"] = _park_phase()
+
+    # ---- 10. the vmap (reference) engine on CUDA tensors ----
+    _vmap_phase(cfg, w, batch, res_bm,
+                solver.make_solver(cfg, dims, iters, engine="fused"))
 
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",

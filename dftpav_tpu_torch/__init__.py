@@ -7,9 +7,13 @@ reference. Ported: the batched whole-solve of the parking classes
 ops.pallas_solve.solve_batch_fused -> kernels A and B in csrc/), the
 batch-minor engine (solver.make_solver(engine="bminor") -> ops.blbfgs over
 ops.bcost, whose corridor term is kernels K2 and K3 in csrc/), the front end
-(frontend, pipeline), and the replanning path above the solver: warm and
+(frontend, pipeline), the replanning path above the solver: warm and
 gated replan streams (replan), the executing trajectory (container), and the
-bicycle plant and closed-loop planner server (sim).
+bicycle plant and closed-loop planner server (sim); the park demo's
+playgrounds and figures (playgrounds, viz; examples/park_demo_torch.py) and
+the host geometry (geo, corridor_builders); and the per-scenario reference
+engine (solver.make_solver(engine="vmap") over cost.total_cost and
+lbfgs.minimize).
 """
 
 from dftpav_tpu_torch import config as config

@@ -87,6 +87,19 @@ class OptConfig:
     # (raw costs ~1e3-1e4 would drown the 1e-4 relative test in rounding).
     cost_scale: float = 1.0e-3
 
+    # Reproduce the reference's segment-time-offset quirk: costFunctionCallback
+    # builds trajtimes = [0, T0, T1, ...] (traj_optimizer.cpp:230-234), so
+    # segment i >= 2 is offset by T_{i-1} alone instead of sum(T[:i]). The
+    # default uses the true cumulative sum; golden parity runs against the
+    # compiled C++ at S >= 3 only (cost.total_cost, ops/bcost.py).
+    ref_trajtime_compat: bool = False
+
+    # Also reproduce the reference's cross-segment time-gradient
+    # misattribution (traj_optimizer.cpp:1674-1676): the per-scenario engine
+    # then follows the compiled C++ iterate path for S >= 2 with obstacles
+    # (cost.ref_compat_value_and_grad; make_solver(engine="vmap") only).
+    ref_gradient_compat: bool = False
+
     # Corridor-penalty backend of the batch-minor engine (ops/bcost.py):
     # "xla" the plain broadcast form, "pallas" the CorridorPenalty function
     # of ops/pallas_penalty.py (CUDA kernels for CUDA tensors, its plain

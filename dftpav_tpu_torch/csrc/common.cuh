@@ -65,13 +65,13 @@ template <class T> DFT_HD T sl1_grad(T x) {
 constexpr int kMaxH = 8;
 
 // Largest number of gear segments the kernels take.
-constexpr int kMaxS = 3;
+constexpr int kMaxS = 4;
 
 // a[s] for s < kMaxS by selects, so that an array of a struct in
 // registers is never indexed at run time.
 template <class V>
 DFT_HD V pick(const V* a, int s) {
-  return s == 0 ? a[0] : (s == 1 ? a[1] : a[2]);
+  return s == 0 ? a[0] : (s == 1 ? a[1] : (s == 2 ? a[2] : a[3]));
 }
 
 }  // namespace dftpav

@@ -206,9 +206,9 @@ enum WIdx {
   W_NON_SINV = 33,
   W_NSEG = 34,    // gear segments S
   W_NS = 35,      // kMaxS values: pieces n_s of segment s
-  W_RS = 38,      // kMaxS values: weighted sample rows of segment s
-  W_SIG = 41,     // kMaxS values: virtual-time sigma of segment s
-  W_LEN = 44
+  W_RS = 39,      // kMaxS values: weighted sample rows of segment s
+  W_SIG = 43,     // kMaxS values: virtual-time sigma of segment s
+  W_LEN = 47
 };
 
 template <class T>

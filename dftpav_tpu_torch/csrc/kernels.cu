@@ -14,16 +14,16 @@
 // the gradient partials a reduce-scatter, so every member holds bitwise
 // identical totals and takes identical solver decisions. The solver state
 // leaves the registers: member m holds decision coordinate m % 16 of the
-// iterate, gradient, direction and trial point (m and m + 32 for the
-// multi-gear classes, whose decision vectors have 40 or 56 rows); the
-// m = 16 history pairs, the evaluated point, the rhs (in double), the
+// iterate, gradient, direction and trial point (m, m + 32 and m + 64 for
+// the multi-gear classes, whose decision vectors have 40, 56 or 72 rows);
+// the m = 16 history pairs, the evaluated point, the rhs (in double), the
 // lane's obstacle coefficients, the near-pair ring and the members'
 // gradient partials sit in the warp's slice of shared memory, beside the
 // block's copy of the sample maps (float and double), the jerk form and
 // the quadrature rows: one copy per distinct piece count of the class's
 // segments, each holding only its weighted rows.
 //
-// Both kernels are templates on the number of gear segments S (1, 2 or 3,
+// Both kernels are templates on the number of gear segments S (1 to 4,
 // the decision length following it); the piece counts, rows and sigmas of
 // the segments are read at run time from the weight vector, so that every
 // class with the same S runs the same code.
@@ -443,8 +443,13 @@ extern "C" {
 int dftpav_kernel_n() { return kN; }
 int dftpav_kernel_max_s() { return kMaxS; }
 int dftpav_kernel_dp(int S) {
-  return S == 1 ? KDims<kN, 1>::DP
-                : (S == 2 ? KDims<kN, 2>::DP : KDims<kN, 3>::DP);
+  switch (S) {
+    case 1: return KDims<kN, 1>::DP;
+    case 2: return KDims<kN, 2>::DP;
+    case 3: return KDims<kN, 3>::DP;
+    case 4: return KDims<kN, 4>::DP;
+  }
+  return 0;
 }
 int dftpav_weight_len() { return W_LEN; }
 int dftpav_lbfgs_len() { return L_LEN; }
@@ -475,7 +480,7 @@ int dftpav_kernel_info(int which, const float* wts, int R, int O, int Po,
     err = which == 0 ? plan<S_>(eval_fg_kernel<S_>, w, O, Po, &pl)       \
                      : plan<S_>(solve_kernel<S_>, w, O, Po, &pl);        \
   }
-  DFT_INFO(1) else DFT_INFO(2) else DFT_INFO(3)
+  DFT_INFO(1) else DFT_INFO(2) else DFT_INFO(3) else DFT_INFO(4)
 #undef DFT_INFO
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
@@ -505,7 +510,8 @@ int dftpav_eval_fg(const float* x, const float* bnd, const float* misc,
   const cudaStream_t st = (cudaStream_t)stream;
   if (w.nseg == 1) return (int)launch<1>(eval_fg_kernel<1>, a, w, st);
   if (w.nseg == 2) return (int)launch<2>(eval_fg_kernel<2>, a, w, st);
-  return (int)launch<3>(eval_fg_kernel<3>, a, w, st);
+  if (w.nseg == 3) return (int)launch<3>(eval_fg_kernel<3>, a, w, st);
+  return (int)launch<4>(eval_fg_kernel<4>, a, w, st);
 }
 
 // Whole solve from (x0 [DP, B], f0 [B], g0 [DP, B]) -> x_out [DP, B],
@@ -541,7 +547,8 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
   const LP<float> lp = make_lp<float>(lbp, max_iter, max_ls, past, adaptive);
   if (w.nseg == 1) return (int)launch<1>(solve_kernel<1>, a, w, st, lp);
   if (w.nseg == 2) return (int)launch<2>(solve_kernel<2>, a, w, st, lp);
-  return (int)launch<3>(solve_kernel<3>, a, w, st, lp);
+  if (w.nseg == 3) return (int)launch<3>(solve_kernel<3>, a, w, st, lp);
+  return (int)launch<4>(solve_kernel<4>, a, w, st, lp);
 }
 
 }  // extern "C"

@@ -67,6 +67,50 @@ def maps_as(N: int, dtype=torch.float32, device=None):
                  for m in minco_maps(N))
 
 
+def generate(inner: torch.Tensor, dT: torch.Tensor, head: torch.Tensor,
+             tail: torch.Tensor, maps) -> torch.Tensor:
+    """Solve the MINCO system of one segment per leading index
+    (MinJerkOpt::generate, poly_traj_utils.hpp:953-986, the final tInv
+    scaling deferred to evaluation): inner [..., N-1, 2] waypoints, dT
+    [...] piece durations, head / tail [..., 2, 3] PVA boundary states
+    (columns p, v, a), maps from maps_as(N) -> normalized coefficients
+    [..., N, 6, 2]."""
+    Mh, Mi, Mt = maps
+    N = Mh.shape[0] // 6
+    scale = torch.stack([torch.ones_like(dT), dT, dT * dT], dim=-1)[..., None]
+    b = (Mh @ (head.transpose(-1, -2) * scale) + Mi @ inner
+         + Mt @ (tail.transpose(-1, -2) * scale))
+    return b.reshape(*b.shape[:-2], N, 6, 2)
+
+
+def real_coeffs(b: torch.Tensor, dT: torch.Tensor) -> torch.Tensor:
+    """Normalized [..., N, 6, 2] -> real-time coefficients c[k] =
+    b[k] / dT^k (dT [...])."""
+    k = torch.arange(6, dtype=b.dtype, device=b.device)
+    return b * (dT[..., None] ** -k)[..., None, :, None]
+
+
+def jerk_cost(b: torch.Tensor, dT: torch.Tensor) -> torch.Tensor:
+    """Integral of squared jerk over a segment [..., N, 6, 2] of piece
+    duration dT [...] -> [...]: the closed form of
+    MinJerkOpt::getTrajJerkCost (poly_traj_utils.hpp:998-1009) in the real
+    coefficients c3..c5, summed over the pieces."""
+    c = real_coeffs(b, dT)
+    c3, c4, c5 = c[..., 3, :], c[..., 4, :], c[..., 5, :]
+    t1 = dT[..., None]
+    t2 = t1 * t1
+    t3 = t2 * t1
+    t4 = t2 * t2
+    t5 = t4 * t1
+    e = (36.0 * torch.sum(c3 * c3, -1) * t1
+         + 144.0 * torch.sum(c4 * c3, -1) * t2
+         + 192.0 * torch.sum(c4 * c4, -1) * t3
+         + 240.0 * torch.sum(c5 * c3, -1) * t3
+         + 720.0 * torch.sum(c5 * c4, -1) * t4
+         + 720.0 * torch.sum(c5 * c5, -1) * t5)
+    return torch.sum(e, -1)
+
+
 @functools.lru_cache(maxsize=None)
 def subdivision_matrix(r: int) -> np.ndarray:
     """A [r, 6, 6]: A[i] maps a piece's normalized coefficients to those of

@@ -189,11 +189,17 @@ def seg_rows(dims) -> list:
     return [min(R, -(-seg_active(dims, s) // 8) * 8) for s in range(dims.S)]
 
 
-def weight_vector(sw: StaticW, sigma, dims):
+# Gear segments the kernels take (csrc/common.cuh kMaxS): the class at the
+# weight vector's end has this many slots per field.
+MAX_S = 4
+
+
+def weight_vector(sw: StaticW, sigma, dims, max_s: int = MAX_S):
     """The kernels' weight vector (csrc/kcost.cuh WIdx order), computed in
     double on the host and rounded once to float32: the weights, hull and
     the class (segments, piece counts, rows kept, per-segment virtual-time
-    sigma; `sigma` as EngineFlags.vt_scale takes it)."""
+    sigma; `sigma` as EngineFlags.vt_scale takes it). `max_s`: the slots
+    per field of the class, a build's kMaxS."""
     sig = resolve_vt_scale(sigma, dims.ns_tuple)
     vals = [sw.wei_obs, sw.wei_surround, sw.wei_feas, sw.wei_time,
             sw.max_forward_vel, sw.max_forward_acc, sw.max_forward_cur,
@@ -203,19 +209,21 @@ def weight_vector(sw: StaticW, sigma, dims):
             sw.surround_clearance + math.log(8.0) / sw.lse_alpha, sig[0]]
     vals += [v for xy in sw.le for v in xy]
     vals += [v for xy in sw.e_hat for v in xy]
-    return vals + [sw.non_sinv] + _class_vector(dims, sig)
+    return vals + [sw.non_sinv] + _class_vector(dims, sig, max_s)
 
 
-def _class_vector(dims, sig):
-    """S, then per segment (3 slots, the unused ones repeating segment 0)
-    its pieces, rows kept and sigma."""
-    pad = lambda v: list(v)[:3] + [v[0]] * (3 - len(v))
+def _class_vector(dims, sig, max_s: int = MAX_S):
+    """S, then per segment (max_s slots, the unused ones repeating
+    segment 0) its pieces, rows kept and sigma."""
+    pad = lambda v: list(v)[:max_s] + [v[0]] * (max_s - len(v))
     return [dims.S, *pad(dims.ns_tuple), *pad(seg_rows(dims)), *pad(sig)]
 
 
 def _weights(lib, sw, sigma, dims):
-    """weight_vector as the library's float array."""
-    return _floats(weight_vector(sw, sigma, dims), lib.dftpav_weight_len())
+    """weight_vector as the library's float array, laid out for the
+    library's kMaxS (another build's may differ: chip_smoke.py --parent)."""
+    return _floats(weight_vector(sw, sigma, dims, lib.dftpav_kernel_max_s()),
+                   lib.dftpav_weight_len())
 
 
 def lbfgs_vector(p, flags):
@@ -310,7 +318,7 @@ def kernel_info(dims, which: str) -> dict:
     lib = library()
     out = (ctypes.c_int * 5)()
     # the launch plan reads only the class at the vector's end
-    cls = _class_vector(dims, (1.0,) * dims.S)
+    cls = _class_vector(dims, (1.0,) * dims.S, lib.dftpav_kernel_max_s())
     w = _floats([0.0] * (lib.dftpav_weight_len() - len(cls)) + cls,
                 lib.dftpav_weight_len())
     rc = lib.dftpav_kernel_info("AB".index(which), ctypes.addressof(w),

@@ -296,8 +296,11 @@ def total_cost_b(x: torch.Tensor, scen: Scenario, w: Weights, dims: Dims,
     T, dT, segw = sp.T, sp.dT, scen.seg_mask.to(dtype)
     smoo = torch.sum(segw * jerk_cost_b(sp.coeffs, dT), dim=0)    # [B]
     time_cost = torch.sum(segw * w.wei_time * T, dim=0)
-    trajtime = torch.cat([torch.zeros((1, B), dtype=dtype, device=dev),
-                          torch.cumsum(T, dim=0)[:-1]])           # [S, B]
+    zero = torch.zeros((1, B), dtype=dtype, device=dev)
+    if cfg.opt.ref_trajtime_compat:        # the reference's offsets (config)
+        trajtime = torch.cat([zero, T[:-1]])
+    else:
+        trajtime = torch.cat([zero, torch.cumsum(T, dim=0)[:-1]])  # [S, B]
 
     safe_vn2 = torch.where(sp.valid, sp.vn2, torch.ones_like(sp.vn2))
     inv_vn = 1.0 / torch.sqrt(safe_vn2)

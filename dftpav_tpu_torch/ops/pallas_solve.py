@@ -283,6 +283,15 @@ def _finalize(batch, out_x, out_f, out_status, out_k, w, dims: Dims,
                        status=out_status.to(torch.int32), success=success)
 
 
+def _no_trajtime_compat(cfg: PlannerConfig, dims: Dims) -> None:
+    """The kcost objective offsets segments by the true cumulative time;
+    the reference's offsets (OptConfig.ref_trajtime_compat) differ from it
+    at S >= 3 and are the vmap and bminor engines' only."""
+    if cfg.opt.ref_trajtime_compat and dims.S > 1:
+        raise ValueError("ref_trajtime_compat at S > 1 is implemented by the "
+                         "vmap and bminor engines only")
+
+
 def solve_batch_rounds(batch: Scenario, w: Weights, dims: Dims,
                        cfg: PlannerConfig,
                        max_iterations: int | None = None,
@@ -292,6 +301,7 @@ def solve_batch_rounds(batch: Scenario, w: Weights, dims: Dims,
     device. Weights must be uniform across the batch (one value each).
     x0_override ([DP, B]) warm-starts from a packed decision matrix;
     return_x adds the final packed matrix to the return."""
+    _no_trajtime_compat(cfg, dims)
     kcost._no_tf32()
     flags = flags or EngineFlags()
     sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)
@@ -366,6 +376,7 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
                                   flags, x0_override, return_x)
     from dftpav_tpu_torch.ops import _cuda
 
+    _no_trajtime_compat(cfg, dims)
     flags = flags or EngineFlags()
     sigma = resolve_vt_scale(flags.vt_scale, dims.ns_tuple)
     p = cfg.opt.lbfgs

@@ -31,9 +31,18 @@ from dftpav_tpu_torch.types import Dims, Scenario, from_numpy, \
 class PlannerServer:
     """Replan orchestration with the reference's CheckReplan and seeding
     rules. Solves run on `device` (the card unless the caller names
-    another); `replans` records each replan's class, outcome and host
-    seconds of the front end and of the solve (up to its result on the
-    host)."""
+    another) through make_solver's default engine, "fused" (kernels A and
+    B on the card); `replans` records each replan's class, outcome, solver
+    calls and host seconds of the front end and of the solve (up to its
+    result on the host).
+
+    Beyond the JAX package's server: a failed solve is re-solved with its
+    initial durations scaled by 1.6, then 0.7 (solver.solve_with_retry).
+    JAX's server solves with its bminor engine, which reaches the
+    reverse_park playground's first plan from the front end's durations;
+    the fused engine's objective (and JAX's own round loop) stalls there
+    in float32 and succeeds from 1.6x those durations, so without the
+    ladder the same failing plan would repeat at every replan."""
 
     def __init__(self, pipeline: ParkingPlanner, goal, budget: float = 0.5,
                  max_iterations: int = 300, movers=None, device="cuda"):
@@ -147,7 +156,7 @@ class PlannerServer:
         if scen is None:
             self.n_failures += 1
             self.last_failure = ("frontend", start)
-            self.replans.append(dict(dims=None, ok=False,
+            self.replans.append(dict(dims=None, ok=False, solves=0,
                                      frontend_s=frontend_s, solve_s=None))
             return False
         dims = meta.dims or self.dims
@@ -162,11 +171,18 @@ class PlannerServer:
         t0 = time.perf_counter()
         batch = from_numpy([np.asarray(a)[None] for a in scen], Scenario,
                            device=self.device, dtype=self._dtype)
-        res = self._solvers[dims](batch, self._w)
+        solves = []
+
+        def solve(b, w):
+            solves.append(1)
+            return self._solvers[dims](b, w)
+
+        res = solver.solve_with_retry(solve, batch, self._w, pad_to=1)
         res0 = [a[0].cpu().numpy() for a in res]
         solve_s = time.perf_counter() - t0
         coeffs, dT, cost, _n_iters, status, success = res0
         self.replans.append(dict(dims=dims, ok=bool(success),
+                                 solves=len(solves), cost=float(cost),
                                  frontend_s=frontend_s, solve_s=solve_s))
         if not success:
             self.n_failures += 1

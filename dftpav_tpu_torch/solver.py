@@ -7,13 +7,16 @@ Usage:
     result = solve_with_retry(solve, scenario_batch, weights)
 
 Engines (same per-lane algorithm):
-  "fused": the whole-solve CUDA kernels for CUDA tensors (S <= 3, any
+  "fused": the whole-solve CUDA kernels for CUDA tensors (S <= 4, any
       Dims.Ns); CPU tensors run the plain round loop.
   "rounds": the plain PyTorch round loop on any device.
   "bminor": the batch-minor engine (ops/bcost objective by autograd,
       ops/blbfgs lockstep L-BFGS) on any device, any S with uniform N; its
       corridor term launches the K2/K3 kernels for CUDA tensors when
       OptConfig.corridor_backend is "auto" (the default) or "pallas".
+  "vmap": the readable per-scenario reference (solve_one: cost.total_cost
+      by autograd, lbfgs.minimize), plain PyTorch on any device, any S with
+      uniform N; the only engine that takes OptConfig.ref_gradient_compat.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from dftpav_tpu_torch import cost as cost_mod
-from dftpav_tpu_torch import minco
+from dftpav_tpu_torch import lbfgs, minco
 from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
 from dftpav_tpu_torch.types import Dims, Scenario, SolveResult, Weights
 
@@ -54,6 +57,49 @@ def clamp_boundary_states(scen: Scenario, w: Weights) -> Scenario:
     ini = clamp(clamp(ini, max_vel, 1), max_acc, 2)
     fin = clamp(clamp(fin, max_vel, 1), max_acc, 2)
     return scen._replace(ini_state=ini, fin_state=fin)
+
+
+def solve_one(scen: Scenario, w: Weights, dims: Dims, cfg: PlannerConfig,
+              max_iterations: int | None = None) -> SolveResult:
+    """Solve each scenario of a batch (leaves with a leading [B]) on its
+    own, in its dtype and on its device: the JAX package's per-scenario
+    path, which it vmaps. Matmuls run in full float32 (TF32 off), as the
+    JAX package traces this path under float32 matmul precision."""
+    from dftpav_tpu_torch.ops import kcost
+
+    kcost._no_tf32()
+    return _solve_one(scen, w, dims, cfg, max_iterations)
+
+
+def _solve_one(scen: Scenario, w: Weights, dims: Dims, cfg: PlannerConfig,
+               max_iterations: int | None = None) -> SolveResult:
+    scen = clamp_boundary_states(scen, w)
+    x0 = cost_mod.initial_guess(scen, w, dims)              # [B, dim]
+
+    scale = cfg.opt.cost_scale
+    if cfg.opt.ref_gradient_compat:
+        fun = cost_mod.ref_compat_value_and_grad(scen, w, dims, cfg, scale)
+    else:
+        def fun(x):
+            with torch.enable_grad():
+                xg = x.detach().requires_grad_(True)
+                f = scale * cost_mod.total_cost(xg, scen, w, dims, cfg)[0]
+                (g,) = torch.autograd.grad(f.sum(), xg)
+            return f.detach(), g
+    res = lbfgs.minimize(fun, x0, cfg.opt.lbfgs,
+                         max_iterations=max_iterations)
+
+    u = cost_mod.unpack(res.x, dims)
+    T = cost_mod.virtual_to_real(u.vt, w.mini_t)
+    dT = T / dims.N
+    heads, tails = cost_mod.boundary_states(scen, u, w, dims)
+    coeffs = minco.generate(u.inner, dT, heads, tails,
+                            minco.maps_as(dims.N, res.x.dtype, res.x.device))
+
+    cost = res.f / scale
+    success = (res.status >= 0) & (cost < cfg.opt.reject_cost)
+    return SolveResult(coeffs=coeffs, dT=dT, cost=cost, n_iters=res.n_iters,
+                       status=res.status, success=success)
 
 
 def minimize_bminor(batch: Scenario, w: Weights, dims: Dims,
@@ -113,23 +159,28 @@ def make_solver(cfg: PlannerConfig, dims: Dims,
     EngineFlags.tuned()."""
     from dftpav_tpu_torch.ops import pallas_solve
 
-    if engine == "bminor":
-        if dims.Ns is not None:
-            raise ValueError(
-                "per-segment piece classes (Dims.Ns) are implemented by the "
-                "kcost-based engines; the bminor engine assumes uniform N")
+    if engine not in ("fused", "rounds", "bminor", "vmap"):
+        raise ValueError(f"unknown engine {engine!r}: 'fused', 'rounds', "
+                         "'bminor' or 'vmap'")
+    if engine != "vmap" and cfg.opt.ref_gradient_compat:
+        raise ValueError(
+            "ref_gradient_compat (the reference's cross-segment time-grad "
+            "quirk) is implemented only by the per-scenario engine; use "
+            "make_solver(..., engine='vmap')")
+    if dims.Ns is not None and engine not in ("rounds", "fused"):
+        raise ValueError(
+            "per-segment piece classes (Dims.Ns) are implemented by the "
+            "kcost-based engines (rounds/fused); the bminor/vmap paths "
+            "assume uniform N")
+    if engine in ("bminor", "vmap"):
+        one = solve_batch_bminor if engine == "bminor" else solve_one
 
-        def solve_bminor(batch: Scenario, w: Weights):
-            return solve_batch_bminor(batch, w, dims, cfg,
-                                      max_iterations=max_iterations)
+        def solve_lanes(batch: Scenario, w: Weights):
+            return one(batch, w, dims, cfg, max_iterations=max_iterations)
 
-        return solve_bminor
+        return solve_lanes
     impl = {"fused": pallas_solve.solve_batch_fused,
-            "rounds": pallas_solve.solve_batch_rounds}.get(engine)
-    if impl is None:
-        raise ValueError(f"unknown engine {engine!r}: 'fused', 'rounds' or "
-                         "'bminor' (the vmap engine is ROADMAP.md Queue 1 "
-                         "item 9)")
+            "rounds": pallas_solve.solve_batch_rounds}[engine]
     flags = flags or EngineFlags()
 
     def solve(batch: Scenario, w: Weights):

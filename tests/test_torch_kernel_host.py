@@ -16,7 +16,9 @@ and runs them lane by lane:
     float64 than max(1e-3, 4x plain float32's distance);
   * float64 round loop vs the plain round loop, 12 iterations: statuses, k,
     eval counts exact, fp rtol 1e-10, xp rtol 1e-9 / atol 1e-10;
-  * the embedded form of uniform N = 2 / 4 classes (S = 1 and 2): the
+  * the multi-gear classes S = 2, 3 and 4 (the park demo's S = 4, N = 8
+    class): objective against autograd, 12-iteration paths;
+  * the embedded form of uniform N = 2 / 4 classes (S = 1, 2 and 4): the
     objective against autograd with the unused rows exactly zero, and the
     native class's 12-iteration paths.
 
@@ -207,6 +209,8 @@ DEF(double, f64, 32, 2)
 DEF(float, f32, 32, 2)
 DEF(double, f64, 1, 3)
 DEF(double, f64, 32, 3)
+DEF(double, f64, 1, 4)
+DEF(double, f64, 32, 4)
 """
 
 
@@ -490,22 +494,23 @@ def test_team_eval_8_obstacles_f32_as_close_as_float32_allows():
 
 
 # ---------------------------------------------------------------------------
-# multi-gear classes: S = 2 and 3, per-segment piece counts (Dims.Ns)
+# multi-gear classes: S = 2 to 4, per-segment piece counts (Dims.Ns)
 # ---------------------------------------------------------------------------
 
-MG = {"8-2": (8, 2), "4-2-2": (4, 2, 2)}
+# name: (S, Dims.Ns); S4-N8 is the park demo's uniform class
+MG = {"8-2": (2, (8, 2)), "4-2-2": (3, (4, 2, 2)), "S4-N8": (4, None)}
 
 
 @functools.lru_cache(maxsize=None)
 def _mg_setup(name, appear=False, Bn=8):
     """Bn lanes of scenarios.gear_scenario (S=2) or multi_gear_scenario
-    (S=3) for the class MG[name], inner waypoints jittered by a seeded
+    (S >= 3) for the class MG[name], inner waypoints jittered by a seeded
     +-0.3 m; half of the lanes' x moved off x0 as in _setup. appear: one
     obstacle (O=1) parked on the middle of segment 1 from t = 6 s (the end
     of segment 0 at x0) and 100 m away before, so that only rows that add
     the earlier segment's duration to their time meet it."""
-    ns = MG[name]
-    dims = Dims(S=len(ns), N=8, K=16, Kdes=32, H=4, O=1 if appear else 0,
+    S, ns = MG[name]
+    dims = Dims(S=S, N=8, K=16, Kdes=32, H=4, O=1 if appear else 0,
                 Po=8, Ns=ns)
     make = scenarios.gear_scenario if dims.S == 2 \
         else scenarios.multi_gear_scenario
@@ -538,8 +543,9 @@ def _mg_setup(name, appear=False, Bn=8):
 
 @pytest.mark.parametrize("name", list(MG))
 def test_team_eval_multigear_f64_matches_autograd_and_solo(name):
-    """S = 2 (DP 40) and S = 3 (DP 56) with per-segment piece counts: the
-    32-member mapping (two coordinates per member past 32) equals autograd
+    """S = 2 (DP 40), S = 3 (DP 56) and S = 4 (DP 72) with per-segment
+    piece counts: the 32-member mapping (two or three coordinates per
+    member past 32) equals autograd
     (f rtol 1e-11, g 1e-9) and the one-member path to rounding."""
     cfg, sw, sc, kc, x0p, x, D, dims = _mg_setup(name)
     tuned = EngineFlags.tuned()
@@ -586,7 +592,7 @@ def test_team_eval_s2_obstacle_needs_time_offset():
                  <= 1e-3 * gmax).all())
 
 
-@pytest.mark.parametrize("name", list(MG))
+@pytest.mark.parametrize("name", [n for n in MG if MG[n][0] < 4])
 def test_team_solve_multigear_f64_matches_round_loop_12_iterations(name):
     """Kernel B's mapping on the multi-gear classes, tuned flags (sigma per
     segment): the plain round loop's 12-iteration path exactly."""
@@ -606,22 +612,59 @@ def test_team_solve_multigear_f64_matches_round_loop_12_iterations(name):
                                atol=1e-10)
 
 
+def test_team_solve_s4_f64_matches_round_loop_12_iterations():
+    """Kernel B's mapping on the park demo's S = 4, N = 8 class (DP 72,
+    three coordinates per member), tuned flags: the plain round loop's
+    12-iteration path, statuses, k and evals exact. On two of its eight
+    lanes the loop itself moves f by up to 4e-10 (relative) and x by
+    1e-10 when x0 moves by one ulp, so f and x are held to 1e-10 / 1e-9
+    or, where the loop's own move under three such perturbations is
+    larger, to 4x that move."""
+    flags = EngineFlags.tuned()
+    cfg, sw, sc, kc, x0p, _x, D, dims = _mg_setup("S4-N8")
+    p = cfg.opt.lbfgs
+    ref = pallas_solve._solve_rounds(x0p, sc, kc, sw, dims, p, 12, flags)
+    df, dx = torch.zeros_like(ref.fp), torch.zeros_like(ref.fp)
+    for k in range(3):
+        sgn = torch.from_numpy(
+            np.random.default_rng(k).choice([-1.0, 1.0], x0p.shape))
+        alt = pallas_solve._solve_rounds(x0p * (1 + 2.0 ** -52 * sgn), sc,
+                                         kc, sw, dims, p, 12, flags)
+        df = torch.maximum(df, (alt.fp - ref.fp).abs())
+        dx = torch.maximum(dx, (alt.xp - ref.xp).abs().amax(dim=0))
+    f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, dims, flags)
+    x, f, info = _host_solve(x0p, f0, g0, sc, kc, sw, "auto", p, 12, flags,
+                             torch.float64, G=32, dims=dims)
+    np.testing.assert_array_equal(info[0].numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(info[1].numpy(),
+                                  ref.k.clamp(max=12).numpy())
+    np.testing.assert_array_equal(info[2].numpy(), ref.n_evals.numpy())
+    tol_f = torch.maximum(1e-10 * ref.fp.abs(), 4.0 * df)
+    assert bool(((f - ref.fp).abs() <= tol_f).all()), (f - ref.fp, tol_f)
+    tol_x = torch.maximum(1e-9 * ref.xp.abs() + 1e-10, 4.0 * dx)
+    assert bool(((x - ref.xp).abs() <= tol_x).all())
+    assert int((4.0 * df > 1e-10 * ref.fp.abs()).sum()) <= 2
+
+
 # uniform N = 2 / 4 classes in their N = 8 form (pallas_solve.embedded_class)
 # ---------------------------------------------------------------------------
 
 EMBED = {"S2-N2": dict(S=2, N=2, K=16, Kdes=32, H=4, O=0, Po=8),
          "S1-N4": dict(S=1, N=4, K=16, Kdes=32, H=4, O=2, Po=8),
-         "S1-N2": dict(S=1, N=2, K=16, Kdes=32, H=4, O=0, Po=8)}
+         "S1-N2": dict(S=1, N=2, K=16, Kdes=32, H=4, O=0, Po=8),
+         "S4-N2": dict(S=4, N=2, K=16, Kdes=32, H=4, O=0, Po=8)}
 
 
 @functools.lru_cache(maxsize=None)
 def _embed_setup(name):
-    """The class's fixture (gear_scenario at S = 2, batch_scenarios at
-    S = 1), 8 lanes, float64: the native and the embedded inputs."""
+    """The class's fixture (gear_scenario at S = 2, multi_gear_scenario
+    above, batch_scenarios at S = 1), 8 lanes, float64: the native and the
+    embedded inputs."""
     dims = Dims(**EMBED[name])
-    if dims.S == 2:
-        npb = scenarios.stack_scenarios(
-            [scenarios.gear_scenario(dims)] * 8)
+    if dims.S >= 2:
+        make = scenarios.gear_scenario if dims.S == 2 \
+            else scenarios.multi_gear_scenario
+        npb = scenarios.stack_scenarios([make(dims)] * 8)
     else:
         npb = scenarios.batch_scenarios(dims, 8, seed=5,
                                         n_obstacles=dims.O)

@@ -329,12 +329,12 @@ def test_embedded_class_routing():
     for keep in (Dims(S=1, N=8), Dims(S=2, N=8, Ns=(8, 2)), Dims(S=1, N=3),
                  Dims(S=1, N=16), Dims(S=2, N=4, Ns=(4, 2))):
         assert emb(keep) is keep
-    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: 3,
+    from dftpav_tpu_torch.ops import _cuda
+    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S,
                                   dftpav_kernel_n=lambda: 8,
                                   dftpav_kernel_dp=lambda S: 0)
-    from dftpav_tpu_torch.ops import _cuda
-    for dims in (Dims(S=1, N=3), Dims(S=1, N=16), Dims(S=4, N=2),
-                 Dims(S=4, N=4)):
+    for dims in (Dims(S=1, N=3), Dims(S=1, N=16), Dims(S=5, N=2),
+                 Dims(S=5, N=4)):
         with pytest.raises(NotImplementedError):
             _cuda._check_inputs(lib, None, None, None, emb(dims))
 

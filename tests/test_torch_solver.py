@@ -161,17 +161,17 @@ def test_cuda_without_a_card_raises():
 
 def test_multigear_raises_not_implemented():
     """What still raises for multi-gear classes: the kernels past
-    S = 3 (NotImplementedError in the binding's checks; the plain round
-    loop takes any S), and the bminor engine with per-segment piece
-    classes (ValueError, as in JAX). make_solver takes S=2 and Dims.Ns on
-    "fused" and "rounds"."""
+    S = 4 (NotImplementedError in the binding's checks; the plain round
+    loop takes any S), and the bminor and vmap engines with per-segment
+    piece classes (ValueError, as in JAX). make_solver takes S=2 and
+    Dims.Ns on "fused" and "rounds"."""
     import types as pytypes
 
     cfg = config.PlannerConfig()
-    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: 3)
+    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S)
     with pytest.raises(NotImplementedError):
         _cuda._check_inputs(lib, None, None, None,
-                            Dims(S=4, N=8, K=16, Kdes=32, H=4, O=1, Po=8))
+                            Dims(S=5, N=8, K=16, Kdes=32, H=4, O=1, Po=8))
     for dims in (Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8),
                  Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(8, 2)),
                  Dims(S=1, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(4,))):
@@ -185,4 +185,5 @@ def test_multigear_raises_not_implemented():
     assert callable(solver.make_solver(
         cfg, Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8), engine="bminor"))
     with pytest.raises(ValueError):
-        solver.make_solver(cfg, DIMS, engine="vmap")
+        solver.make_solver(cfg, Dims(S=1, N=8, K=16, Kdes=32, H=4, O=1, Po=8,
+                                     Ns=(4,)), engine="vmap")
