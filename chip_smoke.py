@@ -142,6 +142,24 @@ non-zero and prints no final result):
      float64, 12
      iterations, on the card against the CPU: statuses and iterations
      equal, coefficients, dT and cost within 1e-9.
+ 11. the urban path (no kernel of the port lies on it; the JAX package's
+     urban and SSC stacks are plain XLA), float32 on the card, TF32 off:
+     (1) the lane-net playgrounds highway_v1 and ring_v1 loaded on the card,
+     bitwise equal to the CPU build; (2) the urban demo
+     (examples/urban_demo_torch.py run(), 80 ticks, seed 0): lane
+     association and MPDM, the SSC plan of the chosen behaviour, the agents'
+     IDM + pure-pursuit step, with per-tick ms of MPDM, SSC and the tick
+     (CUDA events), beside JAX's own run of examples/urban_demo.py on the
+     CPU; outcome gates (a closed loop drifts chaotically between float32
+     on two devices): 0 collisions, SSC feasible share >= 0.74, at least
+     one lane change, v_ego mean within 15% of 6.09; (3) batched MPDM on
+     256 seeded highway scenes and batched SSC on 512 plans built from
+     their behaviours, each timed (CUDA events, best of 3) and held against
+     the port's CPU float64 run of the same inputs (in a child process from
+     the start of the run): behaviour equal on >= 99% of scenes, QP status
+     equal on >= 99% of plans, eq_res max <= 1e-3, and TF32 turned off by
+     the SSC path itself; (4) the arena's 200-substep burst for the demo's
+     agents within 1e-3 of the CPU float64 burst.
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -1040,6 +1058,257 @@ def _vmap_phase(cfg, w, batch, res_bm, kernel_solve, B_v=256, B_64=4,
         raise AssertionError("vmap engine failed its gates")
 
 
+# ---- 11. the urban path (examples/urban_demo_torch.py): lane nets, MPDM,
+# the SSC back end and the agents' plant, float32 on the card; JAX's own
+# `python examples/urban_demo.py --steps 80` on the CPU (float32), for
+# reference; the batched drives at the sizes of the JAX package's own
+# batched drives (256 MPDM plans, 512 SSC plans)
+URBAN_STEPS, URBAN_SEED = 80, 0
+URBAN_JAX = {"collisions": 0, "v_mean": 6.09, "v_max": 10.09,
+             "lane_changes": 2, "ssc_feasible": 0.84}
+URBAN_B_MPDM, URBAN_B_SSC, URBAN_SCENE_SEED = 256, 512, 11
+
+
+def _urban_scenes(B, seed, A=6, n_lanes=3, width=3.5):
+    """[B, A, 6] highway scenes (numpy) and their lanes [B, A]: the ego near
+    the start of a lane, traffic ahead 0.3-0.9 m off a lane center (away
+    from the midline, where float32 and float64 may pick different lanes),
+    and in 70% of the scenes a slow car 12-35 m ahead of the ego on its
+    lane, so that all three behaviours win somewhere."""
+    rng = np.random.default_rng(seed)
+    st = np.zeros((B, A, 6))
+    lane = rng.integers(0, n_lanes, (B, A))
+    st[:, 0, 0] = rng.uniform(0, 10, B)
+    st[:, 1:, 0] = rng.uniform(15, 90, (B, A - 1))
+    st[..., 1] = lane * width + rng.uniform(0.3, 0.9, (B, A)) \
+        * rng.choice([-1, 1], (B, A))
+    st[..., 2] = rng.uniform(-0.05, 0.05, (B, A))
+    st[..., 3] = rng.uniform(1.0, 8.0, (B, A))
+    slow = rng.uniform(size=B) < 0.7
+    k = int(slow.sum())
+    lane[slow, 1] = lane[slow, 0]
+    st[slow, 1, 0] = st[slow, 0, 0] + rng.uniform(12, 35, k)
+    st[slow, 1, 1] = lane[slow, 1] * width + rng.uniform(0.3, 0.5, k) \
+        * rng.choice([-1, 1], k)
+    st[slow, 1, 3] = rng.uniform(0.5, 3.0, k)
+    st[:, 0, 3] = rng.uniform(4.0, 9.0, B)
+    return st, lane
+
+
+def _urban_setup(device, dtype):
+    """The demo's highway, geometry and configs on `device`."""
+    from examples import urban_demo_torch as demo
+    from dftpav_tpu_torch.urban import forward_sim as fsim, mpdm
+
+    ls = demo.build_highway(device=device, dtype=dtype)
+    ones = torch.ones(6, dtype=dtype, device=device)
+    geom = fsim.AgentGeom(4.88 * ones, 1.9 * ones, 1.015 * ones,
+                          2.85 * ones)
+    return ls, geom, fsim.SimParam(), mpdm.MPDMConfig(desired_velocity=8.0)
+
+
+def _urban_mpdm(states, lane_ids, device, dtype):
+    from dftpav_tpu_torch.urban import mpdm
+
+    ls, geom, p, cfg = _urban_setup(device, dtype)
+    return mpdm.mpdm_plan(ls, torch.as_tensor(states, device=device).to(dtype),
+                          torch.as_tensor(lane_ids, device=device), geom, 0,
+                          p, cfg)
+
+
+def _urban_ssc_args(ins, device, dtype):
+    """ssc_plan's arguments for the numpy plan inputs `ins` on device, as
+    the demo builds them (the behaviour's lane, every other agent an
+    obstacle)."""
+    from dftpav_tpu_torch.urban import mpdm
+
+    ls, geom, _, cfg = _urban_setup(device, dtype)
+
+    def t(a):
+        return torch.as_tensor(a, device=device).to(dtype)
+    B, A1 = ins["obs"].shape[:2]
+    lane = mpdm._gather_lane(ls, torch.as_tensor(ins["lane"], device=device))
+    times = np.linspace(0.0, cfg.sim_horizon, cfg.n_steps + 1)
+    return (lane, t(ins["ego"]), t(ins["fwd"]), times, t(ins["obs"]),
+            torch.ones(B, A1, dtype=torch.bool, device=device),
+            (geom.length[1:] / 2).expand(B, A1),
+            (geom.width[1:] / 2).expand(B, A1))
+
+
+def _urban_ref_worker(conn, seed, B_mpdm, B_ssc):
+    """Child process: phase 11's reference, the port on the CPU in float64:
+    MPDM on the seeded scenes; from its result the SSC plan inputs (every
+    scene's valid behaviours in turn, cycled to B_ssc plans, built as the
+    demo builds them) and their SSC plans. Sent back as numpy, or the
+    error."""
+    try:
+        torch.set_num_threads(2)
+        from dftpav_tpu_torch.ssc import ssc_plan
+        from dftpav_tpu_torch.urban import mpdm
+
+        t0 = time.perf_counter()
+        st, lanes = _urban_scenes(B_mpdm, seed)
+        r = _urban_mpdm(st, lanes, "cpu", torch.float64)
+        t_mpdm = time.perf_counter() - t0
+        b_idx, beh = np.nonzero(r.valid.numpy())
+        pick = np.resize(np.arange(len(b_idx)), B_ssc)
+        b_idx, beh = b_idx[pick], beh[pick]
+        trajs = r.trajs.numpy()[b_idx, beh]                 # [B, T+1, A, 6]
+        ls, _, _, _ = _urban_setup("cpu", torch.float64)
+        ego_lanes = mpdm.behavior_lane_ids(
+            ls, torch.as_tensor(lanes[:, 0])).numpy()
+        ins = {"lane": ego_lanes[b_idx, beh], "ego": st[b_idx, 0],
+               "fwd": trajs[:, :, 0], "obs": trajs[:, :, 1:].swapaxes(1, 2),
+               "scene": b_idx, "behavior": beh}
+        t1 = time.perf_counter()
+        res = ssc_plan(*_urban_ssc_args(ins, "cpu", torch.float64))
+        conn.send({"states": st, "lanes": lanes,
+                   "behavior": r.behavior.numpy(),
+                   "valid": r.valid.numpy(), "ssc_inputs": ins,
+                   "status": res.qp.status.numpy(),
+                   "n_iters": res.qp.n_iters.numpy(),
+                   "feasible": res.feasible.numpy(),
+                   "ctrl": res.spline.ctrl.numpy(),
+                   "cpu_s": [t_mpdm, time.perf_counter() - t1]})
+    except BaseException as exc:         # reported by the parent
+        conn.send(exc)
+    finally:
+        conn.close()
+
+
+def _urban_phase(urban_rx, device="cuda"):
+    """Phase 11 (module docstring): one line per part, raises on a failed
+    gate. (device="cpu" rehearses it without a card, untimed.)"""
+    from examples import urban_demo_torch as demo
+    from dftpav_tpu_torch import playgrounds
+    from dftpav_tpu_torch.sim import arena
+    from dftpav_tpu_torch.ssc import qp as qp_mod, ssc_plan
+
+    # (1) the lane-net playgrounds on the card, against the same build on
+    # the CPU
+    nets = {}
+    for name in ("highway_v1", "ring_v1"):
+        g, c = (playgrounds.load(name, device=d) for d in (device, "cpu"))
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(g.lane_set.lanes, c.lane_set.lanes)) and \
+            g.lane_graph == c.lane_graph
+        nets[name] = {"lanes": g.lane_set.n_lanes, "agents": len(g.agents),
+                      "lengths_m": g.lane_graph.lengths,
+                      "equal_to_cpu": bool(same),
+                      "device": str(g.lane_set.lanes.xy.device)}
+    ok_nets = all(v["equal_to_cpu"] and v["device"].startswith(device)
+                  for v in nets.values())
+    _emit("urban_lane_nets", nets=nets,
+          tol="LaneSet on the card bitwise equal to the CPU build, "
+              "LaneGraph equal", ok=bool(ok_nets))
+    if not ok_nets:
+        raise AssertionError("lane-net playgrounds failed on the card")
+
+    # (2) the demo, 80 ticks, float32
+    r = demo.run(URBAN_STEPS, URBAN_SEED, 5, device, torch.float32)
+    ok_demo = (r["collisions"] == 0 and r["ssc_feasible"] >= 0.84 - 0.10
+               and r["lane_changes"] >= 1
+               and abs(r["v_mean"] - 6.09) <= 0.15 * 6.09
+               and bool(np.isfinite(r["states"]).all()))
+
+    def p50max(x):
+        return [float(np.median(x)), float(np.max(x))]
+    _emit("urban_demo", steps=r["steps"], seed=URBAN_SEED,
+          collisions=r["collisions"], v_mean=r["v_mean"], v_max=r["v_max"],
+          lane_changes=r["lane_changes"], ssc_feasible=r["ssc_feasible"],
+          wall_s=r["wall_s"], ms_mpdm_p50_max=p50max(r["ms_mpdm"][1:]),
+          ms_ssc_p50_max=p50max(r["ms_ssc"][1:]),
+          ms_tick_p50_max=p50max(r["ms_tick"][1:]),
+          ms_first_tick=float(r["ms_tick"][0]),
+          jax_reference=dict(URBAN_JAX, source=(
+              "python examples/urban_demo.py --steps 80 on the CPU (JAX, "
+              "float32); not the port's")),
+          tol="collisions 0, SSC feasible >= 0.74, >= 1 lane change, v_ego "
+              "mean within 15% of 6.09, finite states",
+          ok=bool(ok_demo))
+    if not ok_demo:
+        raise AssertionError("urban demo failed its gates")
+
+    # (3) batched MPDM (B = 256) and SSC (B = 512) against the port's CPU
+    # float64 run of the same inputs (the child process)
+    ref = urban_rx.recv()
+    if isinstance(ref, BaseException):
+        raise ref
+    def timed(fn):
+        return _cuda_ms(fn) if device == "cuda" else None
+    res = _urban_mpdm(ref["states"], ref["lanes"], device, torch.float32)
+    ms_mpdm = timed(lambda: _urban_mpdm(ref["states"], ref["lanes"], device,
+                                        torch.float32))
+    beh = res.behavior.cpu().numpy()
+    agree = float((beh == ref["behavior"]).mean())
+    valid_eq = float((res.valid.cpu().numpy() == ref["valid"]).all(-1).mean())
+    ok_m = agree >= 0.99 and bool(torch.isfinite(res.trajs).all())
+    _emit("urban_mpdm_batched", B=len(beh), ms=ms_mpdm,
+          behavior_counts=np.bincount(beh, minlength=3).tolist(),
+          behavior_equal_share=agree, valid_equal_share=valid_eq,
+          cpu_f64_s=ref["cpu_s"][0],
+          tol="behaviour equal to the CPU float64 run on >= 99% of scenes",
+          ok=bool(ok_m))
+    if not ok_m:
+        raise AssertionError("batched MPDM failed its gate")
+
+    args = _urban_ssc_args(ref["ssc_inputs"], device, torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True   # the SSC path must undo it
+    out = ssc_plan(*args)
+    tf32_off = torch.backends.cuda.matmul.allow_tf32 is False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms_ssc = timed(lambda: ssc_plan(*args))
+    status = out.qp.status.cpu().numpy()
+    st_eq = float((status == ref["status"]).all(-1).mean())
+    eq_max = float(out.qp.eq_res.max())
+    it = out.qp.n_iters[:, 0].cpu().numpy()
+    ok_s = (st_eq >= 0.99 and eq_max <= 1e-3 and tf32_off
+            and bool(torch.isfinite(out.spline.ctrl).all()))
+    _emit("urban_ssc_batched", B=len(status), ms=ms_ssc,
+          status_equal_share=st_eq, eq_res_max=eq_max,
+          feasible_share=float(out.feasible.float().mean()),
+          feasible_share_cpu_f64=float(ref["feasible"].mean()),
+          n_iters_p50_max=[float(np.median(it)), int(it.max())],
+          n_iters_equal_share=float(
+              (out.qp.n_iters.cpu().numpy() == ref["n_iters"]).mean()),
+          ctrl_max_abs_diff_vs_cpu_f64=float(np.abs(
+              out.spline.ctrl.double().cpu().numpy() - ref["ctrl"]).max()),
+          tf32_off_after_ssc=bool(tf32_off), check_every=qp_mod._CHECK_EVERY,
+          cpu_f64_s=ref["cpu_s"][1],
+          tol="status equal to the CPU float64 run on >= 99% of plans, "
+              "eq_res max <= 1e-3, TF32 turned off by the SSC path",
+          ok=bool(ok_s))
+    if not ok_s:
+        raise AssertionError("batched SSC failed its gates")
+
+    # (4) the arena's 500 Hz burst (one planner tick of 0.4 s = 200
+    # substeps) for the demo's agents on the card against the CPU float64
+    w = demo.setup(URBAN_SEED, 5, "cpu", torch.float64)
+    s5 = arena.from_agent_states(w.states)
+    A = s5.shape[0]
+    rng = np.random.default_rng(URBAN_SEED)
+
+    def burst(device, dtype):
+        def t(a):
+            return torch.as_tensor(a, device=device).to(dtype)
+        ctrl = arena.ArenaControl(
+            t(rng_u[0]), t(rng_u[1]),
+            torch.zeros(A, dtype=torch.bool, device=device),
+            t(np.zeros((A, 5))))
+        return arena.run_burst(t(s5.numpy()), ctrl, t(np.full(A, 2.85)),
+                               0.002, 200)
+    rng_u = (rng.uniform(-0.1, 0.1, A), rng.uniform(-1.0, 1.0, A))
+    g = burst(device, torch.float32)
+    ms_arena = timed(lambda: burst(device, torch.float32))
+    err = float((g.double().cpu() - burst("cpu", torch.float64)).abs().max())
+    ok_a = err <= 1e-3
+    _emit("urban_arena", substeps=200, agents=A, ms=ms_arena,
+          max_abs_err_vs_cpu_f64=err,
+          tol="states within 1e-3 of the CPU float64 burst", ok=bool(ok_a))
+    if not ok_a:
+        raise AssertionError("arena burst failed its gate")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1070,15 +1339,23 @@ def main(argv=None) -> int:
                                   MG_SEED), daemon=True)
     pool_proc.start()
     pool_tx.close()
+    # phase 11's CPU float64 reference, also beside the card's work
+    urban_rx, urban_tx = ctx.Pipe(duplex=False)
+    urban_proc = ctx.Process(target=_urban_ref_worker,
+                             args=(urban_tx, URBAN_SCENE_SEED, URBAN_B_MPDM,
+                                   URBAN_B_SSC), daemon=True)
+    urban_proc.start()
+    urban_tx.close()
     try:
-        return _run(args, pool_rx, ctx)
+        return _run(args, pool_rx, urban_rx, ctx)
     finally:
-        if pool_proc.is_alive():
-            pool_proc.terminate()
-        pool_proc.join()
+        for proc in (pool_proc, urban_proc):
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
 
 
-def _run(args, pool_rx, ctx) -> int:
+def _run(args, pool_rx, urban_rx, ctx) -> int:
     B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
     iters = 150
     from dftpav_tpu_torch import scenarios, solver
@@ -1988,6 +2265,10 @@ def _run(args, pool_rx, ctx) -> int:
     # ---- 10. the vmap (reference) engine on CUDA tensors ----
     _vmap_phase(cfg, w, batch, res_bm,
                 solver.make_solver(cfg, dims, iters, engine="fused"))
+
+    # ---- 11. the urban path: lane nets, the urban demo, batched MPDM and
+    # SSC, the arena (no kernel of the port lies on it) ----
+    _urban_phase(urban_rx)
 
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",

@@ -11,9 +11,11 @@ ops.bcost, whose corridor term is kernels K2 and K3 in csrc/), the front end
 gated replan streams (replan), the executing trajectory (container), and the
 bicycle plant and closed-loop planner server (sim); the park demo's
 playgrounds and figures (playgrounds, viz; examples/park_demo_torch.py) and
-the host geometry (geo, corridor_builders); and the per-scenario reference
+the host geometry (geo, corridor_builders); the per-scenario reference
 engine (solver.make_solver(engine="vmap") over cost.total_cost and
-lbfgs.minimize).
+lbfgs.minimize); and the urban path (urban: lanes, forward simulation,
+MPDM; ssc: corridor and QP; sim.arena; examples/urban_demo_torch.py), which
+has no kernel.
 """
 
 from dftpav_tpu_torch import config as config

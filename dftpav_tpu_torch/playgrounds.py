@@ -6,9 +6,9 @@ single self-describing JSON per scene: map raster spec, box obstacles, ego
 start/goal, circulating movers. The assets are the repo's
 `playgrounds/*.json`, read in place.
 
-A scene with a lane net (`highway_v1`, `ring_v1`) needs the urban stack's
-lane and route modules, which the port does not have yet (ROADMAP.md
-Queue 1 item 6): `load` raises NotImplementedError for it.
+A scene with a lane net (`highway_v1`, `ring_v1`) also carries its LaneSet
+(built by `urban.lane`, on the card unless `load` is given another device)
+and LaneGraph (`urban.route`).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from dftpav_tpu_torch.frontend import GridMap2D
 from dftpav_tpu_torch.sim.obstacles import CircularMover
@@ -34,8 +35,7 @@ class Playground:
     movers: list = field(default_factory=list)
     description: str = ""
     # urban scenes (lane_net_norm.json equivalents): a LaneSet + LaneGraph
-    # and initial traffic placements [(lane_id, s, v), ...]; None until the
-    # urban stack is ported
+    # and initial traffic placements [(lane_id, s, v), ...]
     lane_set: object = None
     lane_graph: object = None
     agents: list = field(default_factory=list)
@@ -74,20 +74,61 @@ def _rasterize(spec: dict) -> GridMap2D:
     return GridMap2D(occ, origin=(ox, oy), resolution=res)
 
 
-def load(name_or_path: str) -> Playground:
+def _build_lane_net(spec: dict, device, dtype):
+    """Lane net from a spec (the lane_net_norm.json equivalent).
+
+    Lane entries: either explicit "waypoints" [[x,y],...], a "straight"
+    {y, x0, x1}, or a "ring" {center, radius} (closed loop, sampled CCW).
+    "left"/"right"/"successors" wire the lateral/longitudinal graph.
+    """
+    from dftpav_tpu_torch.urban import lane as lane_mod
+    from dftpav_tpu_torch.urban.route import LaneGraph
+
+    lanes, lengths, succ = [], [], []
+    entries = spec["lane_net"]["lanes"]
+    P = int(spec["lane_net"].get("samples", 1024))
+    ds = float(spec["lane_net"].get("ds", 1.0))
+    for e in entries:
+        closed = bool(e.get("closed", False))
+        if "waypoints" in e:
+            wps = np.asarray(e["waypoints"], dtype=np.float64)
+        elif "straight" in e:
+            s = e["straight"]
+            n = 31
+            wps = np.stack([np.linspace(s["x0"], s["x1"], n),
+                            np.full(n, s["y"])], 1)
+        elif "ring" in e:
+            r = e["ring"]
+            th = np.linspace(0, 2 * np.pi, 181)
+            wps = np.stack([r["center"][0] + r["radius"] * np.cos(th),
+                            r["center"][1] + r["radius"] * np.sin(th)], 1)
+            closed = True
+        else:
+            raise ValueError(f"lane entry needs waypoints/straight/ring: {e}")
+        lane = lane_mod.build_lane(wps, ds=ds, P=P, closed=closed,
+                                   dtype=dtype, device=device)
+        lanes.append(lane)
+        lengths.append(float(lane.length))
+        succ.append(list(e.get("successors", [])))
+    left = [e.get("left", -1) for e in entries]
+    right = [e.get("right", -1) for e in entries]
+    lane_set = lane_mod.build_lane_set(lanes, left, right)
+    return lane_set, LaneGraph(successors=succ, lengths=lengths)
+
+
+def load(name_or_path: str, device="cuda",
+         dtype=torch.float32) -> Playground:
     """Load a playground by name (from the repo's playgrounds/) or explicit
-    path. Raises NotImplementedError for a scene with a lane net (the urban
-    stack, ROADMAP.md Queue 1 item 6)."""
+    path. A lane net is built on `device` (the card unless the caller names
+    another) in `dtype`."""
     path = name_or_path
     if not os.path.exists(path):
         path = os.path.join(ASSET_DIR, name_or_path + ".json")
     with open(path) as f:
         spec = json.load(f)
+    lane_set = lane_graph = None
     if "lane_net" in spec:
-        raise NotImplementedError(
-            f"{spec.get('name', path)}: a playground with a lane net needs "
-            "urban.lane and urban.route, not ported yet (ROADMAP.md Queue 1 "
-            "item 6)")
+        lane_set, lane_graph = _build_lane_net(spec, device, dtype)
     movers = [CircularMover(center=tuple(m["center"]), radius=m["radius"],
                             speed=m["speed"], phase=m.get("phase", 0.0),
                             ccw=m.get("ccw", True))
@@ -100,6 +141,8 @@ def load(name_or_path: str) -> Playground:
         goal=tuple(spec["ego"]["goal"]),
         movers=movers,
         description=spec.get("description", ""),
+        lane_set=lane_set,
+        lane_graph=lane_graph,
         agents=agents,
     )
 

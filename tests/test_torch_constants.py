@@ -197,6 +197,59 @@ def test_status_and_config_defaults():
         jconfig.resolve_vt_scale("auto", (8, 2))
 
 
+def test_urban_and_ssc_config_defaults():
+    """The urban and SSC configs, layouts and host constants equal JAX's,
+    field by field."""
+    from dftpav_tpu.sim import arena as jarena
+    from dftpav_tpu.ssc import bezier as jbezier, corridor as jcorridor
+    from dftpav_tpu.ssc import planner as jplanner, qp as jqp
+    from dftpav_tpu.ssc import voxel as jvoxel
+    from dftpav_tpu.urban import forward_sim as jfsim, idm as jidm
+    from dftpav_tpu.urban import mpdm as jmpdm, rss as jrss
+    from dftpav_tpu.urban import steer as jsteer
+
+    from dftpav_tpu_torch.sim import arena
+    from dftpav_tpu_torch.ssc import bezier, corridor as scorridor
+    from dftpav_tpu_torch.ssc import planner, qp, voxel
+    from dftpav_tpu_torch.urban import forward_sim as fsim, idm, mpdm, rss
+    from dftpav_tpu_torch.urban import steer
+
+    pairs = [(mpdm.MPDMConfig, jmpdm.MPDMConfig),
+             (planner.SSCConfig, jplanner.SSCConfig),
+             (scorridor.CorridorConfig, jcorridor.CorridorConfig),
+             (voxel.VoxelConfig, jvoxel.VoxelConfig),
+             (idm.IDMParam, jidm.IDMParam), (rss.RssConfig, jrss.RssConfig),
+             (steer.SteerLimits, jsteer.SteerLimits),
+             (fsim.SimParam, jfsim.SimParam)]
+    for cls, jcls in pairs:
+        assert cls._fields == jcls._fields, cls.__name__
+        for f, a, b in zip(cls._fields, cls(), jcls()):
+            if hasattr(a, "_fields"):
+                assert tuple(a) == tuple(float(x) if hasattr(x, "dtype")
+                                         else x for x in b), (cls, f)
+            else:
+                assert a == float(b) if hasattr(b, "dtype") else a == b, \
+                    (cls.__name__, f)
+    assert fsim.AgentGeom._fields == jfsim.AgentGeom._fields
+    assert mpdm.MPDMConfig().n_steps == jmpdm.MPDMConfig().n_steps
+    assert (mpdm.BEHAVIORS, fsim.LAT_RANGE) == (jmpdm.BEHAVIORS,
+                                                 jfsim.LAT_RANGE)
+    assert (steer.X, steer.Y, steer.TH, steer.V, steer.ST, steer.ACC,
+            steer.STATE_DIM) == (jsteer.X, jsteer.Y, jsteer.TH, jsteer.V,
+                                 jsteer.ST, jsteer.ACC, jsteer.STATE_DIM)
+    assert (arena.AX, arena.AY, arena.ATH, arena.AST, arena.AV,
+            arena.ARENA_STATE_DIM) == (jarena.AX, jarena.AY, jarena.ATH,
+                                       jarena.AST, jarena.AV,
+                                       jarena.ARENA_STATE_DIM)
+    assert (qp.SOLVED, qp.MAX_ITER, qp.INFEASIBLE) == \
+        (jqp.SOLVED, jqp.MAX_ITER, jqp.INFEASIBLE)
+    np.testing.assert_array_equal(bezier.JERK_HESSIAN, jbezier.JERK_HESSIAN)
+    for args in ((5, 0.8, 2), (4, 1.0, 5)):
+        for a, b in zip(planner._qp_template(*args),
+                        jplanner._qp_template(*args)):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter in which
     jax and the JAX package cannot be imported."""

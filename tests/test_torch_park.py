@@ -3,7 +3,8 @@
   * geo and corridor_builders on tests/test_geo.py's cases: the port's
     outputs equal the JAX module's (exactly: the same numpy code);
   * playgrounds.load for parking_lot and reverse_park: grid, start, goal,
-    movers equal to JAX's; a lane-net scene raises NotImplementedError;
+    movers equal to JAX's; highway_v1 and ring_v1 with their lane nets
+    and lane graphs equal to JAX's;
   * viz.vehicle_outline equal to JAX's, and a render of a trajectory to a
     PNG (matplotlib, imported only by the render);
   * one replan of the park demo's S = 4 classes through both servers
@@ -127,9 +128,24 @@ def test_playground_load_matches_jax(name):
     assert playgrounds.available() == jpg.available()
 
 
-def test_playground_with_lane_net_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        playgrounds.load("ring_v1")
+@pytest.mark.parametrize("name", ["highway_v1", "ring_v1"])
+def test_playground_with_lane_net_raises(name):
+    """A lane-net scene loads with the same LaneSet (float32, as JAX's
+    default) and LaneGraph as JAX's, and its traffic placements."""
+    ours = playgrounds.load(name, device="cpu")
+    theirs = jpg.load(name)
+    for a, b in zip(ours.lane_set.lanes, theirs.lane_set.lanes):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(ours.lane_set.left_id.numpy(),
+                                  np.asarray(theirs.lane_set.left_id))
+    np.testing.assert_array_equal(ours.lane_set.right_id.numpy(),
+                                  np.asarray(theirs.lane_set.right_id))
+    assert dataclasses.asdict(ours.lane_graph) == \
+        dataclasses.asdict(theirs.lane_graph)
+    assert ours.agents == theirs.agents and len(ours.agents) >= 4
+    assert (ours.name, ours.start, ours.goal) == \
+        (theirs.name, theirs.start, theirs.goal)
+    np.testing.assert_array_equal(ours.grid.occ, theirs.grid.occ)
 
 
 def test_viz_outline_and_render(tmp_path):
