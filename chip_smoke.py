@@ -160,6 +160,40 @@ non-zero and prints no final result):
      equal on >= 99% of plans, eq_res max <= 1e-3, and TF32 turned off by
      the SSC path itself; (4) the arena's 200-substep burst for the demo's
      agents within 1e-3 of the CPU float64 burst.
+ 12. the EUDM path (no kernel: JAX's EUDM and behaviour server are plain
+     XLA), float32 on the card: (1) the urban demo with --behavior eudm
+     (EUDMConfig(desired_velocity=8, step 0.4, 5 layers of 0.8 s), 80 ticks,
+     seed 0), per-tick ms of EUDM, SSC and the tick (CUDA events), beside
+     JAX's run of `examples/urban_demo.py --behavior eudm` on the CPU;
+     gates 0 collisions, 0 lane changes (the logged behaviour is the
+     trajectory row, 0, in both demos), SSC feasible >= 0.70, v_ego mean
+     within 15% of 2.68, finite states; (2) eudm_plan at the reference
+     configuration (5 layers of 1.0 s, step 0.2 s: 27 policies, 25 steps) on
+     256 seeded highway scenes and (3) eudm_plan_cfb over agents 1 and 2
+     (9 belief combinations, beliefs from semantic_map.predict_behaviors) on
+     32 of them, each timed (CUDA events, best of 3) with its peak memory and
+     held against the port's CPU float64 run of the same inputs (a child
+     process from the start; the first 32 scenes for the plan, the first 8
+     for CFB): best policy, and validity and riskiness of every policy,
+     equal on >= 99% of the checked scenes, finite trajectories; (4) the
+     behaviour server (planner "eudm", the demo's config) for 10 ticks 0.4 s
+     apart on the demo's states, beside the same server on the CPU in
+     float64: behaviour, reference lane, validity, DCP root, the snapshot's
+     sequence and lane-change context equal per tick, desired velocity
+     within 1e-4.
+ 13. the sharded solver (parallel.make_sharded_solver over
+     torch.distributed): world size 1 on nccl in this process, then 2 on
+     gloo in two spawned ranks sharing the card (two nccl ranks cannot
+     share one card); each solves its slice of the main path's batch (the
+     bench fixture at B=8192, engine "fused", tuned flags, 150 iterations;
+     one warm-up, one call timed with CUDA events per rank): every lane's
+     cost, iterations and success bitwise equal to phase 4's direct solve
+     (kernel B gives each lane one warp), n_total / n_solved / iters_sum
+     equal and cost_sum within 1e-6 of the direct solve's, success >=
+     0.99; a bminor leg (64 lanes per rank, 25 iterations; K2 / K3) beside
+     the direct bminor solve of the same slices (success >= 0.95, cost p50
+     within 2%); and the dry run's three legs (parallel/dryrun.py, engine
+     "fused"). Kernels A, B, K2 and K3 must all launch on this path.
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -1216,7 +1250,7 @@ def _urban_phase(urban_rx, device="cuda"):
     _emit("urban_demo", steps=r["steps"], seed=URBAN_SEED,
           collisions=r["collisions"], v_mean=r["v_mean"], v_max=r["v_max"],
           lane_changes=r["lane_changes"], ssc_feasible=r["ssc_feasible"],
-          wall_s=r["wall_s"], ms_mpdm_p50_max=p50max(r["ms_mpdm"][1:]),
+          wall_s=r["wall_s"], ms_mpdm_p50_max=p50max(r["ms_behavior"][1:]),
           ms_ssc_p50_max=p50max(r["ms_ssc"][1:]),
           ms_tick_p50_max=p50max(r["ms_tick"][1:]),
           ms_first_tick=float(r["ms_tick"][0]),
@@ -1309,6 +1343,380 @@ def _urban_phase(urban_rx, device="cuda"):
         raise AssertionError("arena burst failed its gate")
 
 
+# ---- 12. the EUDM path: the urban demo with --behavior eudm, batched EUDM
+# and CFB at the reference configuration, the behaviour server; JAX's own
+# `python examples/urban_demo.py --steps 80 --behavior eudm` on the CPU
+# (float32), for reference
+EUDM_JAX = {"collisions": 0, "v_mean": 2.68, "v_max": 8.06,
+            "lane_changes": 0, "ssc_feasible": 0.80}
+# scenes planned on the card; of them checked against the CPU float64 run
+# (which takes ~1.7 s a scene for the plan and ~18 s for CFB on 2 threads)
+EUDM_B, EUDM_B_REF, EUDM_B_CFB, EUDM_B_CFB_REF = 256, 32, 32, 8
+EUDM_UNCERTAIN, EUDM_SERVER_TICKS = (1, 2), 10
+
+
+def _eudm_ref_worker(conn, seed, B, B_ref, B_cfb_ref):
+    """Child process: phase 12's reference, the port on the CPU in float64:
+    eudm_plan at the reference configuration on the first B_ref of the B
+    seeded highway scenes, and eudm_plan_cfb (agents EUDM_UNCERTAIN, their
+    beliefs from semantic_map.predict_behaviors) on the first B_cfb_ref.
+    Sent back as numpy, or the error."""
+    try:
+        torch.set_num_threads(3)
+        from dftpav_tpu_torch.urban import eudm, semantic_map as sm
+
+        st, lanes = _urban_scenes(B, seed)
+        ls, geom, p, _ = _urban_setup("cpu", torch.float64)
+        cfg = eudm.EUDMConfig(desired_velocity=8.0)
+        S, L = torch.as_tensor(st), torch.as_tensor(lanes)
+        t0 = time.perf_counter()
+        r = eudm.eudm_plan(ls, S[:B_ref], L[:B_ref], geom, 0, p, cfg)
+        t1 = time.perf_counter()
+        _, probs = sm.predict_behaviors(ls, S[:B_cfb_ref], L[:B_cfb_ref],
+                                        geom)
+        c = eudm.eudm_plan_cfb(ls, S[:B_cfb_ref], L[:B_cfb_ref], geom, 0, p,
+                               cfg, probs, EUDM_UNCERTAIN)
+
+        def fields(x):
+            return {k: getattr(x, k).numpy() for k in (
+                "best_policy", "behavior", "valid", "risky", "scores",
+                "desired_vel")}
+        conn.send({"states": st, "lanes": lanes, "plan": fields(r),
+                   "cfb": fields(c), "probs": probs.numpy(),
+                   "cpu_s": [t1 - t0, time.perf_counter() - t1]})
+    except BaseException as exc:         # reported by the parent
+        conn.send(exc)
+    finally:
+        conn.close()
+
+
+def _agree(res, ref, n):
+    """Shares of the first n scenes whose best policy, validity and
+    riskiness (every policy) equal the reference's, and the largest
+    relative difference of the finite scores."""
+    def eq(k, per_scene):
+        a = getattr(res, k)[:n].cpu().numpy()
+        e = a == ref[k]
+        return float((e.all(-1) if per_scene else e).mean())
+    s, sr = res.scores[:n].double().cpu().numpy(), ref["scores"]
+    fin = np.isfinite(sr)
+    return {"best_policy_equal": eq("best_policy", False),
+            "behavior_equal": eq("behavior", False),
+            "valid_equal": eq("valid", True),
+            "risky_equal": eq("risky", True),
+            "inf_pattern_equal": float((np.isfinite(s) == fin).all(-1).mean()),
+            "scores_max_rel_diff": float(np.max(
+                np.abs(s[fin] - sr[fin]) / np.maximum(1.0, np.abs(sr[fin])))),
+            "desired_vel_max_abs_diff": float(np.max(np.abs(
+                res.desired_vel[:n].double().cpu().numpy()
+                - ref["desired_vel"])))}
+
+
+def _eudm_phase(eudm_rx, device="cuda"):
+    """Phase 12 (module docstring): one line per part, raises on a failed
+    gate. (device="cpu" rehearses it without a card, untimed.)"""
+    from examples import urban_demo_torch as demo
+    from dftpav_tpu_torch.urban import eudm, semantic_map as sm
+    from dftpav_tpu_torch.urban.behavior_server import BehaviorServer
+
+    def timed(fn):
+        return _cuda_ms(fn) if device == "cuda" else None
+
+    def p50max(x):
+        return [float(np.median(x)), float(np.max(x))]
+
+    # (1) the demo with --behavior eudm, 80 ticks, float32
+    r = demo.run(URBAN_STEPS, URBAN_SEED, 5, device, torch.float32,
+                 behavior="eudm")
+    ok_demo = (r["collisions"] == 0 and r["lane_changes"] == 0
+               and r["ssc_feasible"] >= 0.80 - 0.10
+               and abs(r["v_mean"] - 2.68) <= 0.15 * 2.68
+               and bool(np.isfinite(r["states"]).all()))
+    _emit("eudm_demo", steps=r["steps"], seed=URBAN_SEED,
+          collisions=r["collisions"], v_mean=r["v_mean"], v_max=r["v_max"],
+          lane_changes=r["lane_changes"], ssc_feasible=r["ssc_feasible"],
+          wall_s=r["wall_s"], ms_eudm_p50_max=p50max(r["ms_behavior"][1:]),
+          ms_ssc_p50_max=p50max(r["ms_ssc"][1:]),
+          ms_tick_p50_max=p50max(r["ms_tick"][1:]),
+          ms_first_tick=float(r["ms_tick"][0]),
+          jax_reference=dict(EUDM_JAX, source=(
+              "python examples/urban_demo.py --steps 80 --behavior eudm on "
+              "the CPU (JAX, float32); not the port's")),
+          tol="collisions 0, lane changes 0, SSC feasible >= 0.70, v_ego "
+              "mean within 15% of 2.68, finite states",
+          ok=bool(ok_demo))
+    if not ok_demo:
+        raise AssertionError("EUDM demo failed its gates")
+
+    # (2) batched eudm_plan at the reference configuration (H = 5, layer
+    # 1.0 s, step 0.2 s: P = 27, T = 25) on EUDM_B scenes, and (3) CFB over
+    # two uncertain agents (C = 9) on EUDM_B_CFB of them, each against the
+    # port's CPU float64 run (the child process)
+    ref = eudm_rx.recv()
+    if isinstance(ref, BaseException):
+        raise ref
+    ls, geom, p, _ = _urban_setup(device, torch.float32)
+    cfg = eudm.EUDMConfig(desired_velocity=8.0)
+    S = torch.as_tensor(ref["states"], device=device).to(torch.float32)
+    L = torch.as_tensor(ref["lanes"], device=device)
+    Sc, Lc = S[:EUDM_B_CFB], L[:EUDM_B_CFB]
+    probs = sm.predict_behaviors(ls, Sc, Lc, geom)[1]
+    parts = (
+        ("eudm_plan_batched", "plan", EUDM_B_REF, {},
+         lambda: eudm.eudm_plan(ls, S, L, geom, 0, p, cfg)),
+        ("eudm_cfb_batched", "cfb", EUDM_B_CFB_REF,
+         {"uncertain": list(EUDM_UNCERTAIN), "C": 3 ** len(EUDM_UNCERTAIN),
+          "probs_max_abs_diff_vs_cpu_f64": float(np.abs(
+              probs[:EUDM_B_CFB_REF].double().cpu().numpy()
+              - ref["probs"]).max())},
+         lambda: eudm.eudm_plan_cfb(ls, Sc, Lc, geom, 0, p, cfg, probs,
+                                    EUDM_UNCERTAIN)))
+    ok_b = True
+    for i, (part, key, n_ref, extra, call) in enumerate(parts):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = call()
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else None)
+        ms = timed(call)
+        ag = _agree(res, ref[key], n_ref)
+        finite = bool(torch.isfinite(res.trajs).all())
+        ok = (finite and ag["best_policy_equal"] >= 0.99
+              and ag["valid_equal"] >= 0.99 and ag["risky_equal"] >= 0.99)
+        ok_b &= ok
+        B = res.best_policy.shape[0]
+        _emit(part, B=B, P=int(res.scores.shape[-1]),
+              T=int(res.trajs.shape[-3]) - 1, ms=ms,
+              ms_per_scene=None if ms is None else ms / B,
+              peak_memory_gb=peak, checked_scenes=n_ref, **ag,
+              behavior_counts=np.bincount(res.behavior.cpu().numpy(),
+                                          minlength=3).tolist(),
+              valid_share=float(res.valid.float().mean()),
+              risky_share=float(res.risky.float().mean()),
+              finite_trajs=finite, cpu_f64_s=ref["cpu_s"][i], **extra,
+              tol="best policy, valid and risky (every policy) equal to "
+                  "the CPU float64 run on >= 99% of the checked scenes, "
+                  "finite trajectories", ok=bool(ok))
+    if not ok_b:
+        raise AssertionError("batched EUDM failed its gates")
+
+    # (4) the behaviour server, 10 ticks 0.4 s apart on the demo's states,
+    # beside the same server on the CPU in float64
+    seq = [demo.setup(URBAN_SEED, 5, "cpu", torch.float32).states.double()
+           .numpy()] + list(r["states"][:EUDM_SERVER_TICKS - 1])
+
+    def server(dev_, dtype):
+        w = demo.setup(URBAN_SEED, 5, dev_, dtype, behavior="eudm")
+        return BehaviorServer(w.lane_set, w.geom, 0, planner="eudm",
+                              sim_param=w.p, cfg=w.cfg_eudm)
+    srv_g, srv_c = server(device, torch.float32), server("cpu", torch.float64)
+    rows, tick_ms = [], []
+    for k, st in enumerate(seq):
+        t0 = time.perf_counter()
+        dg = srv_g.tick(st, stamp=0.4 * k)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        dc = srv_c.tick(st, stamp=0.4 * k)
+        rows.append({
+            "behavior": [dg.behavior, dc.behavior],
+            "ref_lane_id": [dg.ref_lane_id, dc.ref_lane_id],
+            "valid": [dg.valid, dc.valid],
+            "ongoing_lat": [dg.ongoing_lat, dc.ongoing_lat],
+            "action_seq_equal": bool(np.array_equal(
+                srv_g._snapshot.action_seq, srv_c._snapshot.action_seq)),
+            "lc": [[srv_g._snapshot.lc_lat, srv_g._snapshot.lc_target],
+                   [srv_c._snapshot.lc_lat, srv_c._snapshot.lc_target]],
+            "desired_vel_rel_diff": abs(dg.desired_vel - dc.desired_vel)
+            / max(1.0, abs(dc.desired_vel))})
+    ok_srv = all(all(v[0] == v[1] for k, v in row.items()
+                     if k in ("behavior", "ref_lane_id", "valid",
+                              "ongoing_lat", "lc"))
+                 and row["action_seq_equal"]
+                 and row["desired_vel_rel_diff"] <= 1e-4 for row in rows)
+    _emit("eudm_behavior_server", ticks=len(rows), stamps_s=0.4,
+          host_ms_per_tick_p50_max=p50max(tick_ms[1:]),
+          ongoing_lat=[row["ongoing_lat"][0] for row in rows],
+          behaviors=[row["behavior"][0] for row in rows],
+          rows=rows, tol="behaviour, reference lane, validity, root, "
+          "snapshot sequence and lane-change context equal to the CPU "
+          "float64 server's per tick, desired velocity within 1e-4",
+          ok=bool(ok_srv))
+    if not ok_srv:
+        raise AssertionError("behaviour server failed its gate")
+
+
+# ---- 13. the sharded solver over torch.distributed: world size 1 on nccl
+# in this process and 2 on gloo (two spawned ranks sharing the one card),
+# the bench class at the main path's batch through the fused engine, a
+# bminor leg, and the dry run's three legs
+SHARD_BM_PER_RANK, SHARD_BM_ITERS = 64, 25
+
+
+def _launch_counts():
+    from dftpav_tpu_torch.ops import kcost, pallas_penalty as pp, \
+        pallas_solve
+    return [kcost.eval_fg.launches, pallas_solve.solve_batch_fused.launches,
+            pp.corridor_fwd.launches, pp.corridor_bwd.launches]
+
+
+def _reset_launches():
+    from dftpav_tpu_torch.ops import kcost, pallas_penalty as pp, \
+        pallas_solve
+    kcost.eval_fg.launches = 0
+    pallas_solve.solve_batch_fused.launches = 0
+    pp.corridor_fwd.launches = 0
+    pp.corridor_bwd.launches = 0
+
+
+def _sharded_legs(rank, world, device, B, iters):
+    """One rank of phase 13 (the process group open): the sharded fused
+    solve of the bench fixture at B (one warm-up, then one call timed with
+    CUDA events), the bminor leg (SHARD_BM_PER_RANK lanes per rank,
+    SHARD_BM_ITERS iterations) beside the direct bminor solve of the same
+    slice, and the dry run's legs. Returns numpy results, the all-reduced
+    metrics, ms and the launches of kernels A, B, K2 and K3 in the sharded
+    calls (not in the warm-up or the direct solve)."""
+    from dftpav_tpu_torch import solver
+    from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
+    from dftpav_tpu_torch.parallel import dryrun, sharding
+    from dftpav_tpu_torch.types import Dims, weights_from_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, dims = PlannerConfig(), Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2,
+                                      Po=8)
+    w = weights_from_config(cfg.opt, torch.float32, device=device)
+    big = dryrun.bench_batch(dims, B, device)
+    fn = sharding.make_sharded_solver(cfg, dims, iters, engine="fused",
+                                      flags=EngineFlags.tuned())
+    fn(big, w)                                      # warm-up
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+    counts = np.zeros(4, np.int64)
+    _reset_launches()
+    out = {}
+
+    def run():
+        out["fused"] = fn(big, w)
+    ms = _cuda_ms(run, reps=1, warmup=0) if on_card else run()
+    res, m = out["fused"]
+
+    B_bm = SHARD_BM_PER_RANK * world
+    bm = dryrun.bench_batch(dims, B_bm, device)
+    fn_bm = sharding.make_sharded_solver(cfg, dims, SHARD_BM_ITERS,
+                                         engine="bminor")
+    t0 = time.perf_counter()
+    res_bm, m_bm = fn_bm(bm, w)
+    bm_s = time.perf_counter() - t0
+    legs = dryrun.dryrun_multichip(rank, world, device)
+    counts += _launch_counts()
+    direct = solver.make_solver(cfg, dims, SHARD_BM_ITERS, engine="bminor")(
+        sharding.shard_of(bm, rank, world), w)
+
+    def np_(r):
+        return {"cost": r.cost.cpu().numpy(), "n_iters": r.n_iters.cpu()
+                .numpy(), "success": r.success.cpu().numpy()}
+    return {"rank": rank, "world": world, "device": str(device),
+            "backend": torch.distributed.get_backend(),
+            "fused": np_(res), "metrics": {k: float(v) for k, v in m.items()},
+            "ms": ms, "bminor": np_(res_bm), "bminor_direct": np_(direct),
+            "bminor_metrics": {k: float(v) for k, v in m_bm.items()},
+            "bminor_s": bm_s, "dryrun": legs, "launches": counts.tolist()}
+
+
+def _sharded_phase(res_main, B, iters, device="cuda"):
+    """Phase 13 (module docstring): world size 1 on nccl here, then 2 on
+    gloo in two spawned ranks on the one card; every lane against phase
+    4's direct solve (res_main), the metrics against the direct solve's;
+    one line per world size, raises on a failed gate. Returns the launches
+    of kernels A, B, K2 and K3 on the sharded path. (device="cpu"
+    rehearses it without a card, on gloo, untimed; no kernel launches
+    there, so its gate fails.)"""
+    import tempfile
+
+    from dftpav_tpu_torch.parallel import dryrun, sharding
+
+    direct = {"cost": res_main.cost.cpu().numpy(),
+              "n_iters": res_main.n_iters.cpu().numpy(),
+              "success": res_main.success.cpu().numpy()}
+    m_direct = {k: float(v) for k, v in zip(
+        sharding.METRIC_KEYS, sharding.metrics_of(res_main).unbind())}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = torch.device(device, 0) if device == "cuda" else \
+            torch.device(device)
+        sharding.init_process_group(0, 1, f"file://{tmp}/store", dev)
+        try:
+            runs.append([_sharded_legs(0, 1, dev, B, iters)])
+        finally:
+            torch.distributed.destroy_process_group()
+    runs.append(dryrun.run_ranks(_sharded_legs, 2, (B, iters),
+                                 device=str(dev), backend="gloo",
+                                 timeout=600.0))
+    launches = np.zeros(4, np.int64)
+    ok_all = True
+    for ranks in runs:
+        world = len(ranks)
+        n, B_bm = B // world, SHARD_BM_PER_RANK * world
+        eq = {k: np.concatenate([(r["fused"][k] == direct[k][
+            r["rank"] * n:(r["rank"] + 1) * n]) for r in ranks])
+            for k in ("cost", "n_iters", "success")}
+        bitwise = float(np.logical_and.reduce(list(eq.values())).mean())
+        m = ranks[0]["metrics"]
+        same_m = all(r["metrics"] == m for r in ranks)
+        metrics_ok = (same_m and all(m[k] == m_direct[k] for k in (
+            "n_total", "n_solved", "iters_sum"))
+            and abs(m["cost_sum"] - m_direct["cost_sum"])
+            <= 1e-6 * abs(m_direct["cost_sum"]))
+        cost = np.concatenate([r["fused"]["cost"] for r in ranks])
+        succ = float(np.concatenate([r["fused"]["success"]
+                                     for r in ranks]).mean())
+        p50, p50_d = float(np.median(cost)), float(np.median(direct["cost"]))
+        bm = {k: np.concatenate([r[k]["cost"] for r in ranks])
+              for k in ("bminor", "bminor_direct")}
+        bm_succ = float(np.concatenate([r["bminor"]["success"]
+                                        for r in ranks]).mean())
+        bm_p50 = [float(np.median(bm["bminor"])),
+                  float(np.median(bm["bminor_direct"]))]
+        cnt = np.sum([r["launches"] for r in ranks], axis=0)
+        launches += cnt
+        dry = ranks[0]["dryrun"]
+        ok = (bitwise == 1.0 and metrics_ok and succ >= 0.99
+              and bm_succ >= 0.95
+              and abs(bm_p50[0] - bm_p50[1]) <= 0.02 * abs(bm_p50[1])
+              and all(c > 0 for c in cnt)
+              and ranks[0]["bminor_metrics"]["n_total"] == B_bm)
+        ok_all &= ok
+        _emit("sharded_solver", world=world,
+              backend=ranks[0]["backend"],
+              devices=[r["device"] for r in ranks], B=B, iters=iters,
+              engine="fused", ms_per_rank=[r["ms"] for r in ranks],
+              lanes_bitwise_equal_share=bitwise,
+              equal_share_by_field={k: float(v.mean())
+                                    for k, v in eq.items()},
+              metrics=m, metrics_direct=m_direct,
+              metrics_equal_on_ranks=same_m, success=succ,
+              cost_p50=[p50, p50_d],
+              bminor={"B": B_bm, "iters": SHARD_BM_ITERS,
+                      "success": bm_succ, "cost_p50_sharded_direct": bm_p50,
+                      "bitwise_equal_share": float(
+                          (bm["bminor"] == bm["bminor_direct"]).mean()),
+                      "s_per_rank": [r["bminor_s"] for r in ranks]},
+              dryrun_legs=dry,
+              launches=dict(zip(("eval_fg", "solve_fused", "corridor_fwd",
+                                 "corridor_bwd"), cnt.tolist())),
+              tol="every lane's cost, iterations and success bitwise equal "
+                  "to phase 4's direct solve; n_total, n_solved, iters_sum "
+                  "equal and cost_sum within 1e-6 of the direct solve's; "
+                  "success >= 0.99; bminor leg success >= 0.95 and cost p50 "
+                  "within 2% of the direct bminor solve of the same slices; "
+                  "all four kernels launched; the dry run's legs passed",
+              ok=bool(ok))
+    if not ok_all:
+        raise AssertionError("sharded solver failed its gates")
+    return launches.tolist()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1346,16 +1754,23 @@ def main(argv=None) -> int:
                                    URBAN_B_SSC), daemon=True)
     urban_proc.start()
     urban_tx.close()
+    # phase 12's CPU float64 reference, likewise
+    eudm_rx, eudm_tx = ctx.Pipe(duplex=False)
+    eudm_proc = ctx.Process(target=_eudm_ref_worker,
+                            args=(eudm_tx, URBAN_SCENE_SEED, EUDM_B,
+                                  EUDM_B_REF, EUDM_B_CFB_REF), daemon=True)
+    eudm_proc.start()
+    eudm_tx.close()
     try:
-        return _run(args, pool_rx, urban_rx, ctx)
+        return _run(args, pool_rx, urban_rx, eudm_rx, ctx)
     finally:
-        for proc in (pool_proc, urban_proc):
+        for proc in (pool_proc, urban_proc, eudm_proc):
             if proc.is_alive():
                 proc.terminate()
             proc.join()
 
 
-def _run(args, pool_rx, urban_rx, ctx) -> int:
+def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
     iters = 150
     from dftpav_tpu_torch import scenarios, solver
@@ -2270,6 +2685,14 @@ def _run(args, pool_rx, urban_rx, ctx) -> int:
     # SSC, the arena (no kernel of the port lies on it) ----
     _urban_phase(urban_rx)
 
+    # ---- 12. the EUDM path: the demo with EUDM, batched EUDM and CFB, the
+    # behaviour server (no kernel of the port lies on it) ----
+    _eudm_phase(eudm_rx)
+
+    # ---- 13. the sharded solver: kernels A and B (and K2 / K3 on its
+    # bminor leg) per rank ----
+    sharded = _sharded_phase(res, B_main, iters)
+
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
          "source": "dftpav_tpu_torch/csrc/kernels.cu",
@@ -2278,7 +2701,8 @@ def _run(args, pool_rx, urban_rx, ctx) -> int:
          "err_of": f"f and g vs plain float32 at B={B_chk}",
          "launches_by_path": {"main": launches["eval_fg"],
                               "multigear": mg_launches[0],
-                              **{k: v[0] for k, v in rp_paths.items()}},
+                              **{k: v[0] for k, v in rp_paths.items()},
+                              "sharded": sharded[0]},
          "per_class": [{"ns": r["ns"], "ms": r["ms_a"],
                         "plain_ms": r["plain_ms_a"],
                         "bound_ms": r["bound_ms_a"],
@@ -2296,7 +2720,8 @@ def _run(args, pool_rx, urban_rx, ctx) -> int:
          "err_of": "final f after 12 iterations, lanes whose path matched",
          "launches_by_path": {"main": launches["solve_fused"],
                               "multigear": mg_launches[1],
-                              **{k: v[1] for k, v in rp_paths.items()}},
+                              **{k: v[1] for k, v in rp_paths.items()},
+                              "sharded": sharded[1]},
          "per_class": [{"ns": r["ns"], "ms": r["ms_b"],
                         "plain_ms_f64": r["plain_ms_b_f64"],
                         "bound_ms": r["bound_ms_b"],
@@ -2308,6 +2733,8 @@ def _run(args, pool_rx, urban_rx, ctx) -> int:
          "source": "dftpav_tpu_torch/csrc/penalty.cu",
          "replaces": "dftpav_tpu/ops/pallas_penalty.py:74",
          "launches": launches_pen["corridor_fwd"], "max_abs_err": err_k2,
+         "launches_by_path": {"bminor": launches_pen["corridor_fwd"],
+                              "sharded": sharded[2]},
          "err_of": f"per-lane cost vs plain float32, bench B={B_chk} and "
                    f"B={B_main}, gear S=2 B=256",
          "ms": t_pen["ms_k2"], "plain_ms": t_pen["plain_ms_k2"],
@@ -2317,6 +2744,8 @@ def _run(args, pool_rx, urban_rx, ctx) -> int:
          "source": "dftpav_tpu_torch/csrc/penalty.cu",
          "replaces": "dftpav_tpu/ops/pallas_penalty.py:86",
          "launches": launches_pen["corridor_bwd"], "max_abs_err": err_k3,
+         "launches_by_path": {"bminor": launches_pen["corridor_bwd"],
+                              "sharded": sharded[3]},
          "err_of": f"d_sig, d_dsig, d_wq vs plain float32, bench "
                    f"B={B_chk} and B={B_main}, gear S=2 B=256",
          "ms": t_pen["ms_k3"], "plain_ms": t_pen["plain_ms_k3"],

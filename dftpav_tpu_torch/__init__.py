@@ -13,9 +13,12 @@ bicycle plant and closed-loop planner server (sim); the park demo's
 playgrounds and figures (playgrounds, viz; examples/park_demo_torch.py) and
 the host geometry (geo, corridor_builders); the per-scenario reference
 engine (solver.make_solver(engine="vmap") over cost.total_cost and
-lbfgs.minimize); and the urban path (urban: lanes, forward simulation,
-MPDM; ssc: corridor and QP; sim.arena; examples/urban_demo_torch.py), which
-has no kernel.
+lbfgs.minimize); the urban path (urban: lanes, forward simulation, MPDM,
+EUDM and the behaviour server; ssc: corridor and QP; sim.arena;
+examples/urban_demo_torch.py), which has no kernel; the scenario-parallel
+solver over torch.distributed (parallel: kernels A and B, or K2 / K3, per
+rank); and the host utilities (utils: metrics, checkpoints and the
+trajectory wire format shared with the JAX package, profiling).
 """
 
 from dftpav_tpu_torch import config as config

@@ -1,6 +1,6 @@
-"""Urban driving stack: lanes, Frenet transforms, driver models, MPDM
-behaviour planning (the port of `dftpav_tpu/urban/`, EUDM and the behaviour
-server not yet: ROADMAP.md Queue 1).
+"""Urban driving stack: lanes, Frenet transforms, car-following and
+lane-change models, MPDM and EUDM behaviour planning, the behaviour server
+(the port of `dftpav_tpu/urban/`).
 
 Batch-first: every function takes leading batch dims where the JAX package
 vmaps (over agents, behaviours or scenes), and the horizon is a Python loop

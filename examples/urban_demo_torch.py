@@ -1,14 +1,14 @@
-"""Urban closed-loop demo on the port: MPDM behaviour -> SSC back end ->
-multi-agent plant (the counterpart of examples/urban_demo.py).
+"""Urban closed-loop demo on the port: MPDM or EUDM behaviour -> SSC back
+end -> multi-agent plant (the counterpart of examples/urban_demo.py).
 
 A three-lane 600 m highway, IDM + pure-pursuit traffic agents on their own
-lanes, and an ego driven by MPDM behaviour selection with the SSC planner as
-trajectory back end; one tick per MPDM step (0.4 s). The same highway and
-agents as JAX's demo from the same --seed. Runs on the card unless
---device names another.
+lanes, and an ego driven by MPDM behaviour selection (or EUDM's DCP tree,
+`--behavior eudm`) with the SSC planner as trajectory back end; one tick
+per MPDM step (0.4 s). The same highway and agents as JAX's demo from the
+same --seed. Runs on the card unless --device names another.
 
 Run:  python examples/urban_demo_torch.py [--steps 80] [--agents 5]
-          [--seed 0] [--device cuda] [--plot out.png]
+          [--behavior mpdm|eudm] [--seed 0] [--device cuda] [--plot out.png]
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from dftpav_tpu_torch.ssc.planner import SSCConfig, SSCResult  # noqa: E402
 from dftpav_tpu_torch.urban import forward_sim as fsim  # noqa: E402
 from dftpav_tpu_torch.urban import geometry  # noqa: E402
 from dftpav_tpu_torch.urban import lane as lane_mod  # noqa: E402
-from dftpav_tpu_torch.urban import mpdm, semantic_map  # noqa: E402
+from dftpav_tpu_torch.urban import eudm, mpdm, semantic_map  # noqa: E402
 
 
 def build_highway(n_lanes=3, length=600.0, lane_width=3.5, device="cuda",
@@ -64,12 +64,14 @@ class World(NamedTuple):
     geom: fsim.AgentGeom
     p: fsim.SimParam
     cfg_mpdm: mpdm.MPDMConfig
+    cfg_eudm: eudm.EUDMConfig | None  # None: MPDM decides
     cfg_ssc: SSCConfig
     times: np.ndarray             # [T+1] forward-sim stamps
     dt_plan: float
 
 
-def setup(seed=0, agents=5, device="cuda", dtype=torch.float32) -> World:
+def setup(seed=0, agents=5, device="cuda", dtype=torch.float32,
+          behavior="mpdm") -> World:
     rng = np.random.default_rng(seed)
     states = torch.as_tensor(spawn_agents(rng, agents, n_lanes=3),
                              device=device).to(dtype)
@@ -77,11 +79,17 @@ def setup(seed=0, agents=5, device="cuda", dtype=torch.float32) -> World:
     geom = fsim.AgentGeom(length=4.88 * ones, width=1.9 * ones,
                           d_cr=1.015 * ones, wheel_base=2.85 * ones)
     cfg_mpdm = mpdm.MPDMConfig(desired_velocity=8.0)
+    # EUDM's tree on the same 0.4 s steps (5 layers of 0.8 s: 10 steps, the
+    # MPDM horizon), as JAX's demo configures it
+    cfg_eudm = eudm.EUDMConfig(desired_velocity=8.0, step=0.4,
+                               tree_height=5, layer_time=0.8) \
+        if behavior == "eudm" else None
     # the tick matches the MPDM sim resolution so the SSC-infeasible
     # fallback (one forward-sim state) advances exactly one tick
     return World(lane_set=build_highway(device=device, dtype=dtype),
                  states=states, geom=geom, p=fsim.SimParam(),
-                 cfg_mpdm=cfg_mpdm, cfg_ssc=SSCConfig(M=5),
+                 cfg_mpdm=cfg_mpdm, cfg_eudm=cfg_eudm,
+                 cfg_ssc=SSCConfig(M=5),
                  times=np.linspace(0.0, cfg_mpdm.sim_horizon,
                                    cfg_mpdm.n_steps + 1),
                  dt_plan=cfg_mpdm.sim_resolution)
@@ -105,20 +113,40 @@ class Tick(NamedTuple):
     states: torch.Tensor          # [A, 6] after the tick
     dec: mpdm.MPDMResult
     ssc: SSCResult
-    marks: tuple                  # start, after MPDM, after SSC, end
+    marks: tuple                  # start, after the planner, after SSC, end
+
+
+def _eudm_decision(w: World, states, lane_ids) -> mpdm.MPDMResult:
+    """EUDM's decision in MPDM's form, as JAX's demo builds it: the first
+    three scores and flags, the best policy's trajectory three times, the
+    reference lane of EUDM's behaviour, and behaviour 0 (the trajectory
+    row to follow), so that the logged behaviour never changes."""
+    eres = eudm.eudm_plan(w.lane_set, states, lane_ids, w.geom, 0, w.p,
+                          w.cfg_eudm)
+    lanes3 = mpdm.behavior_lane_ids(w.lane_set, lane_ids[0])
+    best = eres.trajs[eres.best_policy]
+    return mpdm.MPDMResult(
+        behavior=torch.zeros_like(eres.behavior),
+        desired_vel=eres.desired_vel, scores=eres.scores[:3],
+        valid=eres.valid[:3], trajs=best[None].expand((3,) + best.shape),
+        ref_lane_id=lanes3[eres.behavior])
 
 
 def tick(w: World, states) -> Tick:
-    """One planning tick: lane association and MPDM, the SSC plan of the
-    chosen behaviour, the ego set to the SSC spline's state one tick ahead
-    (the MPDM forward state where the corridor is infeasible), and the
+    """One planning tick: lane association and the behaviour planner (MPDM,
+    or EUDM where the world has its config), the SSC plan of the chosen
+    behaviour, the ego set to the SSC spline's state one tick ahead (the
+    planner's forward state where the corridor is infeasible), and the
     traffic agents one IDM + pure-pursuit step on their own lanes."""
     dev = states.device
     m0 = _mark(dev)
     lane_ids = torch.clamp(semantic_map.associate_lanes(w.lane_set, states),
                            min=0)
-    dec = mpdm.mpdm_plan(w.lane_set, states, lane_ids, w.geom, 0, w.p,
-                         w.cfg_mpdm)
+    if w.cfg_eudm is not None:
+        dec = _eudm_decision(w, states, lane_ids)
+    else:
+        dec = mpdm.mpdm_plan(w.lane_set, states, lane_ids, w.geom, 0, w.p,
+                             w.cfg_mpdm)
     m1 = _mark(dev)
     ego_traj = dec.trajs[dec.behavior]                   # [T+1, A, 6]
     ref_lane = mpdm._gather_lane(w.lane_set, dec.ref_lane_id)
@@ -150,12 +178,15 @@ def tick(w: World, states) -> Tick:
     return Tick(states=nxt, dec=dec, ssc=res, marks=(m0, m1, m2, _mark(dev)))
 
 
-def run(steps=80, seed=0, agents=5, device="cuda", dtype=torch.float32):
+def run(steps=80, seed=0, agents=5, device="cuda", dtype=torch.float32,
+        behavior="mpdm"):
     """The closed loop for `steps` ticks -> a summary dict: collisions,
     v_ego mean / max, lane changes (changes of the chosen behaviour, as JAX's
-    demo counts them), SSC feasible share, wall seconds, per-tick ms of
-    MPDM, SSC and the whole tick (CUDA events on the card), and the logs."""
-    w = setup(seed, agents, device, dtype)
+    demo counts them; always 0 with EUDM, whose logged behaviour is the
+    trajectory row 0), SSC feasible share, wall seconds, per-tick ms of the
+    behaviour planner, SSC and the whole tick (CUDA events on the card), and
+    the logs."""
+    w = setup(seed, agents, device, dtype, behavior)
     states = w.states
     pa = (w.geom.length[0], w.geom.width[0], w.geom.d_cr[0])
     log_states, rows, marks = [], [], []
@@ -182,7 +213,7 @@ def run(steps=80, seed=0, agents=5, device="cuda", dtype=torch.float32):
                 v_max=float(rows[:, 2].max()),
                 lane_changes=int((np.diff(beh) != 0).sum()),
                 ssc_feasible=float(rows[:, 3].mean()), wall_s=wall,
-                ms_mpdm=ms[:, 0], ms_ssc=ms[:, 1], ms_tick=ms[:, 2],
+                ms_behavior=ms[:, 0], ms_ssc=ms[:, 1], ms_tick=ms[:, 2],
                 behavior=beh,
                 states=torch.stack(log_states).cpu().double().numpy())
 
@@ -196,16 +227,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--plot", type=str, default="")
     args = ap.parse_args(argv)
-    if args.behavior == "eudm":
-        ap.error("--behavior eudm: urban/eudm.py is not ported yet "
-                 "(ROADMAP.md Queue 1)")
 
-    r = run(args.steps, args.seed, args.agents, args.device)
+    r = run(args.steps, args.seed, args.agents, args.device,
+            behavior=args.behavior)
     print(f"steps={args.steps} wall={r['wall_s']:.1f}s "
           f"collisions={r['collisions']} v_ego mean={r['v_mean']:.2f} "
           f"max={r['v_max']:.2f} lane_changes={r['lane_changes']} "
           f"ssc_feasible={r['ssc_feasible']:.2f} "
-          f"ms/tick p50 mpdm={np.median(r['ms_mpdm']):.1f} "
+          f"ms/tick p50 {args.behavior}={np.median(r['ms_behavior']):.1f} "
           f"ssc={np.median(r['ms_ssc']):.1f} "
           f"tick={np.median(r['ms_tick']):.1f}")
 
