@@ -194,6 +194,30 @@ non-zero and prints no final result):
      the direct bminor solve of the same slices (success >= 0.95, cost p50
      within 2%); and the dry run's three legs (parallel/dryrun.py, engine
      "fused"). Kernels A, B, K2 and K3 must all launch on this path.
+ 14. the class domain (kernels A and B at every class with S <= 4 and 2
+     to 16 pieces per segment, any L-BFGS memory m and past window):
+     Dims(S=1, N=6, K=8, Kdes=12, O=2), Dims(S=2, N=5, K=8, Kdes=12, O=0)
+     (capacity 8, piece counts that do not divide it), Dims(S=1, N=16,
+     O=2) and Dims(S=2, N=16, Ns=(16, 8), O=0) (capacity 16, the class
+     constants in global memory), B=1024 each, through
+     pallas_solve.solve_batch_fused (one warm-up, best of 3), then kernel
+     A at x0 under phase 3's gate and kernel B alone (CUDA events) with
+     its kernel_info (registers, local bytes, warps, shared memory, where
+     the constants and the history lie) (kernel A's f may also pass, as
+     its g does in phase 3, within 4x plain float32's own error of
+     float64); kernel B against the plain round
+     loop in float64 as phase 7 holds it (12-iteration paths equal on >=
+     50% of the lanes; success and cost p50 within 0.02 / 2% beyond the
+     loop's own spread under 1e-7 perturbations of x0, run in child
+     processes after the timed runs), finite coefficients of the native
+     shape; then the bench class on the main path's batch (B=8192) at
+     m = 16, 64 and 256 (above 16 pairs the history lies in a per-lane
+     global scratch): success >= 0.99, cost p50, iterations p50 / p90 /
+     p99, kernel B ms, its launches bitwise equal, m = 16 bitwise equal to
+     phase 4's result, and at m = 64 and 256 the first 1024 lanes against
+     the float64 plain loop at that m (success >= 0.99, cost p50 within
+     2%, 12-iteration paths equal on >= 50%). Kernels A and B's launches
+     are counted over the path's solve_batch_fused calls.
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -210,10 +234,11 @@ unpacked with `git archive` into a gitignored directory) in turns with
 this package's (package, other, other, package), on the fixture and on
 variants of its inputs that each remove one cost: no_corridor (H = 0),
 no_obstacles (O = 0), replicated8 (B / 8 scenarios, each on 8 consecutive
-lanes, so lanes that share a warp or a block take the same path), with
-whether the two builds' outputs are bitwise equal and that build's ptxas
-registers, spills and machine instructions; then traces one launch of
-kernels A and B with torch.profiler.
+lanes, so lanes that share a warp or a block take the same path), and on
+phase 7's S = 4 classes and a two-gear class at B=256, with whether the
+two builds' outputs are bitwise equal and that build's build seconds,
+ptxas registers, spills and machine instructions; then traces one launch
+of kernels A and B with torch.profiler.
 """
 
 from __future__ import annotations
@@ -289,6 +314,18 @@ def _bound(nbytes, flops, flops64=0):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def _nvcc_seconds(log):
+    """{source: seconds of its nvcc} from a build log (ops/_cuda.py
+    build)."""
+    out, src = {}, None
+    for ln in log.splitlines():
+        if " -c -o " in ln:
+            src = ln.split()[-1].rsplit("/", 1)[-1]
+        elif ln.startswith("[nvcc ") and src:
+            out[src] = float(ln.split()[1])
+    return out
+
+
 def _ptxas(log):
     """{kernel function name: (registers, spill store bytes)} from an
     `nvcc -Xptxas -v` log."""
@@ -361,45 +398,53 @@ def _rel_errs(f, g, f_ref, g_ref):
 
 
 def _other_kernel_b(csrc):
-    """(library path, kernel B) built from the directory csrc, kernel B as
-    a function with the arguments and return of _cuda.launch_solve_fused.
-    A build that exports dftpav_kernel_max_s has this package's C
-    interface. An older one takes S = 1 only and the first
-    dftpav_weight_len() entries of the weight vector; of those, one that
-    exports dftpav_kernel_info also takes the lane queue and the planes'
-    lane-major copy."""
+    """(library path, build seconds, kernel B) built from the directory
+    csrc, kernel B as a function with the arguments and return of
+    _cuda.launch_solve_fused. A build that exports dftpav_scratch_bytes has
+    this package's C interface. An older one takes the first
+    dftpav_weight_len() entries of the weight vector and m = 16 only; of
+    those, one that exports dftpav_kernel_max_s takes S = 1 to 4, the
+    others S = 1; one that exports dftpav_kernel_info also takes the lane
+    queue and the planes' lane-major copy."""
     import ctypes
     import pathlib
 
     from dftpav_tpu_torch.ops import _cuda, kcost
 
+    t0 = time.perf_counter()
     so = _cuda.build(pathlib.Path(csrc))
+    build_s = time.perf_counter() - t0
     raw = ctypes.CDLL(str(so))
-    if hasattr(raw, "dftpav_kernel_max_s"):
+    if hasattr(raw, "dftpav_scratch_bytes"):
         lib = _cuda.load(so)
-        return so, lambda *a: _cuda.solve_fused_with(lib, *a)
+        return so, build_s, lambda *a: _cuda.solve_fused_with(lib, *a)
     queued = hasattr(raw, "dftpav_kernel_info")
+    # S it takes, and the slots per field of its weight vector's class
+    multi = hasattr(raw, "dftpav_kernel_max_s")
+    max_s = raw.dftpav_kernel_max_s() if multi else 1
+    slots = max_s if multi else _cuda.MAX_S
     P, I = ctypes.c_void_p, ctypes.c_int
     raw.dftpav_solve_fused.argtypes = \
         [P] * 14 + [I] * 9 + [P] * (6 if queued else 4)
     raw.dftpav_solve_fused.restype = I
 
     def solve(x0, f0, g0, sc, kc, sw, dims, sigma, p, max_iter, flags):
-        if dims.S != 1:
-            raise NotImplementedError(f"{csrc}: a build for S = 1 only")
+        if dims.S > max_s or p.mem_size != 16:
+            raise NotImplementedError(f"{csrc}: S <= {max_s} and m = 16")
         B, R = x0.shape[1], kcost.r_rows(dims)
-        Q = kc.Q[0, :dims.N + 5].contiguous()
+        Q = kc.Q[:, :dims.N + 5].contiguous()
         x, f = torch.empty_like(x0), torch.empty_like(f0)
         info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
         n_w = raw.dftpav_weight_len()
-        w = _cuda._floats(_cuda.weight_vector(sw, sigma, dims)[:n_w], n_w)
+        w = _cuda._floats(_cuda.weight_vector(sw, sigma, dims,
+                                              slots)[:n_w], n_w)
         lp = _cuda._floats(_cuda.lbfgs_vector(p, flags),
                            raw.dftpav_lbfgs_len())
         keep = []
         if queued:
             keep = [torch.zeros(1, dtype=torch.int32, device=x0.device),
-                    torch.empty(B * 5 * dims.H * R, dtype=torch.float32,
-                                device=x0.device)]
+                    torch.empty(B * 5 * dims.H * dims.S * R,
+                                dtype=torch.float32, device=x0.device)]
         rc = raw.dftpav_solve_fused(
             x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
             sc.misc.data_ptr(), sc.corr_n.data_ptr(), sc.corr_p.data_ptr(),
@@ -413,7 +458,7 @@ def _other_kernel_b(csrc):
         if rc != 0:
             raise RuntimeError(f"{csrc}: dftpav_solve_fused: CUDA error {rc}")
         return x, f, info
-    return so, solve
+    return so, build_s, solve
 
 
 # the two-gear per-segment piece classes of the JAX package's bench
@@ -476,15 +521,15 @@ def _mg_pool_worker(conn, n_plans, seed):
         conn.close()
 
 
-def _plain_worker(dims, npb, seeds, iters, dtype="float64"):
+def _plain_worker(dims, npb, seeds, iters, dtype="float64", mem=16):
     """Child process: the plain round loop in `dtype` on the card for the
     lanes of class dims (numpy Scenario npb), prepared in float32 as the
     kernels get them, from x0 (seed None) and from x0 * (1 + 1e-7 N(0, 1))
     drawn with each other seed, all of them one batch (lanes are
     independent, and the loop's time is its host's, nearly independent of
-    the batch), for `iters`; and from x0 alone for 12 iterations. Returns
-    {seed: {n: numpy (status, fp, k, n_evals)}} and the seconds of the long
-    run."""
+    the batch), for `iters`; and from x0 alone for 12 iterations; L-BFGS
+    memory `mem`. Returns {seed: {n: numpy (status, fp, k, n_evals)}} and
+    the seconds of the long run."""
     from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
     from dftpav_tpu_torch.ops import kcost, pallas_solve
     from dftpav_tpu_torch.types import Scenario, from_numpy, \
@@ -493,6 +538,7 @@ def _plain_worker(dims, npb, seeds, iters, dtype="float64"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, tuned = PlannerConfig(), EngineFlags.tuned()
+    p = dataclasses.replace(cfg.opt.lbfgs, mem_size=mem)
     w = weights_from_config(cfg.opt, torch.float32)
     sw = kcost.StaticW.build(w, cfg)
     batch = from_numpy(npb, Scenario, dtype=torch.float32)
@@ -517,8 +563,7 @@ def _plain_worker(dims, npb, seeds, iters, dtype="float64"):
     out = {seed: {} for seed in seeds}
     for x, sc_n, n, keys in runs:
         t0 = time.perf_counter()
-        r = pallas_solve._solve_rounds(x, sc_n, kc, sw, dims, cfg.opt.lbfgs,
-                                       n, tuned)
+        r = pallas_solve._solve_rounds(x, sc_n, kc, sw, dims, p, n, tuned)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         for i, seed in enumerate(keys):
@@ -1717,6 +1762,306 @@ def _sharded_phase(res_main, B, iters, device="cuda"):
     return launches.tolist()
 
 
+# ---- 14. the class domain: kernels A and B at piece counts that do not
+# divide 8 (capacity 8), at N = 16 and Ns = (16, 8) (capacity 16, their
+# class constants in global memory), and the bench class at L-BFGS
+# memories m = 16, 64 and 256 (above 16 pairs the history lies in a
+# per-lane global scratch)
+CD_B = 1024
+CD_CLASSES = {
+    "S1-N6": dict(S=1, N=6, K=8, Kdes=12, H=4, O=2, Po=8),
+    "S2-N5": dict(S=2, N=5, K=8, Kdes=12, H=4, O=0, Po=8),
+    "S1-N16": dict(S=1, N=16, K=16, Kdes=32, H=4, O=2, Po=8),
+    "S2-N16-8": dict(S=2, N=16, K=16, Kdes=32, H=4, O=0, Po=8, Ns=(16, 8))}
+CD_MEMS = (16, 64, 256)
+
+
+def _cd_fixture(dims, B):
+    """numpy Scenario of B lanes of class dims: batch_scenarios (seed 7) at
+    S = 1, gear_scenario with a seeded +-0.3 m jitter at S = 2."""
+    from dftpav_tpu_torch import scenarios
+
+    if dims.S == 1:
+        return scenarios.batch_scenarios(dims, B, seed=7, dtype=np.float32,
+                                         n_obstacles=dims.O)
+    return _jittered(scenarios.gear_scenario, dims, B, 17)
+
+
+def _two_loop_flops(k, m, DP):
+    """Operations of a lane's two-loop recursions over its k iterations
+    with at most m history pairs of DP rows: two dots and two axpys (8 DP)
+    per pair in use, min(i, m) pairs at iteration i; summed over lanes."""
+    k = k.double()
+    full = torch.clamp(k - m, min=0.0)
+    j = torch.minimum(k, torch.full_like(k, float(m)))
+    return float((8 * DP * (j * (j + 1) / 2 + full * m)).sum())
+
+
+def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
+                        a_gate):
+    """Phase 14 (module docstring): emits a line per class and per L-BFGS
+    memory, raises on a failed gate. Returns the path's launches [kernel A,
+    kernel B] and the kernels line's per-class rows (A, B)."""
+    from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
+    from dftpav_tpu_torch.types import Dims, Scenario, from_numpy
+
+    dev = torch.device("cuda")
+    p = cfg.opt.lbfgs
+    launches = [0, 0]
+
+    def drive(fn):
+        """fn() with the path's launch counts set to 0 before it and
+        added up after it."""
+        kcost.eval_fg.launches = 0
+        pallas_solve.solve_batch_fused.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[0] += kcost.eval_fg.launches
+        launches[1] += pallas_solve.solve_batch_fused.launches
+        return out, (kcost.eval_fg.launches,
+                     pallas_solve.solve_batch_fused.launches)
+
+    def with_mem(m):
+        return dataclasses.replace(cfg, opt=dataclasses.replace(
+            cfg.opt, lbfgs=dataclasses.replace(p, mem_size=m)))
+
+    def np_success_cost(st, fp):
+        cost = fp.astype(np.float64) / cfg.opt.cost_scale
+        return (float(((st >= 0) & (cost < cfg.opt.reject_cost)).mean()),
+                float(np.median(cost)))
+
+    # 14a. each class through the path (solve_batch_fused, one warm-up and
+    # three timed calls), then kernels A and B alone at its x0
+    cls, rows_a, rows_b = {}, [], []
+    for name, kw in CD_CLASSES.items():
+        dims_n = Dims(**kw)
+        npb = _cd_fixture(dims_n, CD_B)
+        bn = from_numpy(npb, Scenario, device=dev, dtype=torch.float32)
+        keep = {}
+        ms_path, l_path = drive(lambda: _cuda_ms(lambda: keep.__setitem__(
+            "r", pallas_solve.solve_batch_fused(bn, w, dims_n, cfg, iters,
+                                                flags=tuned)), reps=3))
+        dims_e = pallas_solve.embedded_class(dims_n)
+        _b, x0e, sce, kce, _D = pallas_solve._prep(
+            pallas_solve.embed_scenario(bn, dims_n, dims_e), w, dims_e,
+            torch.float32, "auto")
+        fA, gA = _cuda.launch_eval_fg(x0e, sce, kce, sw, dims_e, "auto")
+        plain = {}
+        errs, _ok = a_gate(fA, gA, x0e, sce, kce, dims_e,
+                           kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e,
+                                               tuned))
+        # phase 3's gate, with its float64 alternative for f too: these
+        # lots' f reach ~1e4, where plain float32 itself is ~1e-4 off
+        ok_a = ((errs["rel_f_max_a"] <= 1e-4
+                 or errs["rel_f_max_a_vs_f64"]
+                 <= max(1e-4, 4.0 * errs["plain_f32_rel_f_max_vs_f64"]))
+                and (errs["rel_g_max_a"] <= 1e-3
+                     or errs["rel_g_max_a_vs_f64"]
+                     <= max(1e-3, 4.0 * errs["plain_f32_rel_g_max_vs_f64"])))
+        t = {"ms_path": ms_path,
+             "ms_a": _cuda_ms(lambda: _cuda.launch_eval_fg(
+                 x0e, sce, kce, sw, dims_e, "auto"), reps=20),
+             "plain_ms_a": _cuda_ms(lambda: plain.__setitem__(
+                 "a", kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e, tuned)),
+                 reps=3)}
+        ms_b = _cuda_ms(lambda: keep.__setitem__("b", _cuda.launch_solve_fused(
+            x0e, fA, gA, sce, kce, sw, dims_e, "auto", p, iters, tuned)),
+            reps=3)
+        xb, fb, infob = keep["b"]
+        info12 = _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
+                                          "auto", p, 12, tuned)[2]
+        rows = int((kce.gridc[:, 0] > 0).sum())   # all segments' rows
+        ins = _nbytes(x0e, *sce, kce.P, kce.Q[:, :dims_e.N + 5], kce.gridc)
+        t["bound_ms_a"], t["bound_by_a"] = _bound(
+            ins + _nbytes(fA, gA),
+            CD_B * (rows * FLOP_ROW_A + dims_e.S * FLOP_LANE_A),
+            CD_B * rows * FLOP64_ROW_A)
+        evals = int((infob[2].float() - 1.0).sum())
+        t["bound_ms_b"], t["bound_by_b"] = _bound(
+            ins + _nbytes(fA, gA, xb, fb, infob),
+            evals * (rows * FLOP_ROW_A + dims_e.S * FLOP_LANE_A)
+            + _two_loop_flops(infob[1], p.mem_size, x0e.shape[0]),
+            evals * rows * FLOP64_ROW_A)
+        t.update(ms_b=ms_b, lane_evals_b=evals, **errs,
+                 max_abs_err_a=max((fA - plain["a"][0]).abs().max().item(),
+                                   (gA - plain["a"][1]).abs().max().item()),
+                 kernel_info={k: _cuda.kernel_info(dims_e, k) for k in "AB"},
+                 iters_p50_p90_p99=[_pct(keep["r"].n_iters.float(), q)
+                                    for q in (50, 90, 99)])
+        r = keep["r"]
+        shape_ok = (tuple(r.coeffs.shape)
+                    == (CD_B, dims_n.S, dims_n.N, 6, 2)
+                    and bool(torch.isfinite(r.coeffs).all()))
+        cls[name] = (dims_n, npb, t, ok_a and shape_ok and min(l_path) > 0,
+                     {"status": infob[0].cpu().numpy(),
+                      "fp": fb.cpu().numpy(), "k12": info12.cpu().numpy(),
+                      "success_path": r.success.float().mean().item(),
+                      "launches": l_path, "embedded_as": [dims_e.N,
+                                                          list(dims_e.Ns)]})
+
+    # 14b. the bench class (the main path's batch) at m = 16, 64, 256
+    dims_b = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
+    _b, x0b, scb, kcb, _D = pallas_solve._prep(big, w, dims_b, torch.float32,
+                                               "auto")
+    f0b, g0b = _cuda.launch_eval_fg(x0b, scb, kcb, sw, dims_b, "auto")
+    n_chk = min(CD_B, x0b.shape[1])
+
+    def cut(a):
+        return a[..., :n_chk].contiguous()
+    npb_chk = Scenario(*(a[:n_chk].cpu().numpy() for a in big))
+    mems = {}
+    for m in CD_MEMS:
+        cfg_m, p_m = with_mem(m), dataclasses.replace(p, mem_size=m)
+        keep = {}
+        ms_path, l_path = drive(lambda: _cuda_ms(lambda: keep.__setitem__(
+            "r", pallas_solve.solve_batch_fused(big, w, dims_b, cfg_m, iters,
+                                                flags=tuned)), reps=3))
+        outs = []
+        ms_b = _cuda_ms(lambda: outs.append(_cuda.launch_solve_fused(
+            x0b, f0b, g0b, scb, kcb, sw, dims_b, "auto", p_m, iters, tuned)),
+            reps=3)
+        r = keep["r"]
+        xb, fb, infob = outs[0]
+        evals = int((infob[2].float() - 1.0).sum())
+        rows = int((kcb.gridc[0, 0] > 0).sum())
+        ins = _nbytes(x0b, *scb, kcb.P, kcb.Q[0, :dims_b.N + 5], kcb.gridc)
+        bound_ms, bound_by = _bound(
+            ins + _nbytes(f0b, g0b, xb, fb, infob),
+            evals * (rows * FLOP_ROW_A + FLOP_LANE_A)
+            + _two_loop_flops(infob[1], m, x0b.shape[0]),
+            evals * rows * FLOP64_ROW_A)
+        t = {"m": m, "B": x0b.shape[1], "ms_path": ms_path, "ms_b": ms_b,
+             "success": r.success.float().mean().item(),
+             "cost_p50": float(np.median(r.cost.double().cpu().numpy())),
+             "iters_p50_p90_p99": [_pct(r.n_iters.float(), q)
+                                   for q in (50, 90, 99)],
+             "lane_evals_b": evals, "bound_ms_b": bound_ms,
+             "bound_by_b": bound_by,
+             "b_launches_bitwise_equal": all(
+                 torch.equal(u, v) for o in outs[1:]
+                 for u, v in zip(outs[0], o)),
+             "kernel_info_b": _cuda.kernel_info(dims_b, "B", m),
+             "launches": l_path}
+        if m == CD_MEMS[0]:
+            t["equal_to_main_path"] = all(torch.equal(
+                getattr(r, f), getattr(res_main, f))
+                for f in ("cost", "n_iters", "status", "coeffs"))
+        t["k12"] = _cuda.launch_solve_fused(
+            cut(x0b), cut(f0b), cut(g0b), kcost.KScenario(*map(cut, scb)),
+            kcb, sw, dims_b, "auto", p_m, 12, tuned)[2].cpu().numpy()
+        t["chk"] = {"status": infob[0][:n_chk].cpu().numpy(),
+                    "fp": fb[:n_chk].cpu().numpy()}
+        mems[m] = t
+
+    # 14c. the plain round loop in float64 in child processes (the card is
+    # otherwise idle now): each class from x0 and MG_PERTURB perturbed
+    # copies, the bench class's first n_chk lanes at m = 64 and 256
+    workers = ctx.Pool(processes=len(cls) + 2)
+    try:
+        jobs = {name: workers.apply_async(
+            _plain_worker, (v[0], v[1], (None, *MG_PERTURB), iters))
+            for name, v in cls.items()}
+        for m in CD_MEMS[1:]:
+            jobs[m] = workers.apply_async(
+                _plain_worker, (dims_b, npb_chk, (None,), iters, "float64",
+                                m))
+        plain = {k: job.get(timeout=900) for k, job in jobs.items()}
+    finally:
+        workers.terminate()
+        workers.join()
+
+    failed = []
+    for name, (dims_n, _npb, t, ok_k, o) in cls.items():
+        p64 = plain[name]
+        s_k, c_k = np_success_cost(o["status"], o["fp"])
+        s_64, c_64 = np_success_cost(p64[None][iters]["status"],
+                                     p64[None][iters]["fp"])
+        pert = [np_success_cost(p64[sd][iters]["status"],
+                                p64[sd][iters]["fp"]) for sd in MG_PERTURB]
+        spread_s = max(abs(v[0] - s_64) for v in pert)
+        spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
+        ref12 = np.stack([p64[None][12][k] for k in ("status", "k",
+                                                      "n_evals")])
+        share = float((o["k12"] == ref12).all(axis=0).mean())
+        t.update(success_kernel_b=s_k, cost_p50_kernel_b=c_k,
+                 success_plain_f64=s_64, cost_p50_plain_f64=c_64,
+                 success_cost_p50_plain_f64_perturbed=pert,
+                 spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
+                 share_12iter_vs_f64=share,
+                 plain_ms_b_f64=p64[None][iters]["seconds"] * 1e3,
+                 plain_lanes_b_f64=p64[None][iters]["lanes"])
+        ok = (ok_k and share >= MG_SHARE12
+              and abs(s_k - s_64) <= 0.02 + spread_s
+              and abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64))
+        _emit("class_domain", cls=name, dims=dataclasses.asdict(dims_n),
+              embedded_as=o["embedded_as"], B=CD_B, iters=iters,
+              success_path=o["success_path"], launches=o["launches"], **t,
+              tol="A vs plain float32: |df|/|f|<=1e-4 and max|dg|<=1e-3*"
+                  "max(1,max|g|), or where float32 cannot hold a lane, vs "
+                  "float64 within max(tol, 4x plain float32's own error); "
+                  "B vs the plain round loop in float64: "
+                  "|dsuccess|<=0.02+spread, |dcost p50|<=(2%+spread) "
+                  "(spread: its own largest move with x0 perturbed by 1e-7, "
+                  "3 seeds), 12-iteration paths equal on >=50% of the "
+                  "lanes; both kernels launched on the path; finite "
+                  "coefficients of the native shape", ok=bool(ok))
+        rows_a.append({"class": name, "m": p.mem_size, "ms": t["ms_a"],
+                       "plain_ms": t["plain_ms_a"],
+                       "bound_ms": t["bound_ms_a"],
+                       "bound_by": t["bound_by_a"],
+                       "max_abs_err": t["max_abs_err_a"],
+                       "err_of": "f and g vs plain float32 at the class's "
+                                 "x0", "launches": o["launches"][0]})
+        rows_b.append({"class": name, "m": p.mem_size, "ms": t["ms_b"],
+                       "plain_ms_f64": t["plain_ms_b_f64"],
+                       "bound_ms": t["bound_ms_b"],
+                       "bound_by": t["bound_by_b"],
+                       "launches": o["launches"][1]})
+        if not ok:
+            failed.append(name)
+    for m, t in mems.items():
+        ok = (t["success"] >= 0.99 and t["b_launches_bitwise_equal"]
+              and t.get("equal_to_main_path", True)
+              and min(t["launches"]) > 0)
+        chk, k12 = t.pop("chk"), t.pop("k12")
+        if m in plain:
+            p64 = plain[m][None]
+            s_k, c_k = np_success_cost(chk["status"], chk["fp"])
+            s_64, c_64 = np_success_cost(p64[iters]["status"],
+                                         p64[iters]["fp"])
+            ref12 = np.stack([p64[12][k] for k in ("status", "k",
+                                                    "n_evals")])
+            share = float((k12 == ref12).all(axis=0).mean())
+            t.update(B_plain=n_chk, success_kernel_b_chk=s_k,
+                     cost_p50_kernel_b_chk=c_k, success_plain_f64=s_64,
+                     cost_p50_plain_f64=c_64, share_12iter_vs_f64=share,
+                     plain_ms_b_f64=p64[iters]["seconds"] * 1e3)
+            ok = (ok and share >= MG_SHARE12 and s_k >= 0.99
+                  and abs(c_k - c_64) <= 0.02 * abs(c_64))
+        _emit("class_domain_memory", cls="bench", **t,
+              tol="success>=0.99; kernel B's launches bitwise equal; m = 16 "
+                  "bitwise the main path's result; m > 16 on the first "
+                  "1024 lanes vs the plain round loop in float64 at that "
+                  "m: success>=0.99, cost p50 within 2%, 12-iteration "
+                  "paths equal on >=50% of the lanes; both kernels launched",
+              ok=bool(ok))
+        if m != CD_MEMS[0]:
+            rows_b.append({"class": "bench", "m": m, "ms": t["ms_b"],
+                           "plain_ms_f64": t.get("plain_ms_b_f64"),
+                           "plain_lanes": t.get("B_plain"),
+                           "bound_ms": t["bound_ms_b"],
+                           "bound_by": t["bound_by_b"],
+                           "launches": t["launches"][1]})
+        if not ok:
+            failed.append(f"bench m={m}")
+    _emit("class_domain_path", launches={"eval_fg": launches[0],
+                                         "solve_fused": launches[1]},
+          ok=not failed and min(launches) > 0)
+    if failed or min(launches) == 0:
+        raise AssertionError(f"class domain: {failed} failed their gates")
+    return launches, rows_a, rows_b
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1805,7 +2150,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         return hits[0]
     _emit("device", device=kind, nvidia_smi=smi.splitlines()[0],
           torch=torch.__version__, cuda=torch.version.cuda,
-          build_s=round(build_s, 3), ptxas=ptxas,
+          build_s=round(build_s, 3), nvcc_s=_nvcc_seconds(log), ptxas=ptxas,
           machine_instructions=_sass_sizes(so))
 
     dims = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
@@ -2033,8 +2378,8 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         t["evals_per_lane_b_p50_p99_max"] = [
             _pct(evals_lane, 50), _pct(evals_lane, 99),
             float(evals_lane.max())]
-        for tag, name in (("a", "eval_fg_kernelILi1E"),
-                          ("b", "solve_kernelILi1E")):
+        for tag, name in (("a", "eval_fg_kernelILi8ELi1E"),
+                          ("b", "solve_kernelILi8ELi1ELi16E")):
             info = _cuda.kernel_info(dims, tag.upper())
             t[f"registers_{tag}"], t[f"spill_store_bytes_{tag}"] = \
                 regs_of(name)
@@ -2133,8 +2478,9 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         return dims, x0v, scv, kcv
 
     def parent_ab():
-        so_other, other = _other_kernel_b(args.parent)
-        _emit("parent_build", csrc=args.parent,
+        so_other, build_s_other, other = _other_kernel_b(args.parent)
+        _emit("parent_build", csrc=args.parent, build_s=build_s_other,
+              nvcc_s=_nvcc_seconds(so_other.with_suffix(".log").read_text()),
               registers_spill_store_bytes=_ptxas(
                   so_other.with_suffix(".log").read_text()),
               machine_instructions=_sass_sizes(so_other))
@@ -2167,6 +2513,36 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                     "success_cost_p50": success_cost(info_v[0], f_v)})
             _emit("kernel_B_ab", variant=variant, B=B_main, ms_a=ms_a,
                   ms_per_1e6_lane_evals_a=ms_a / (B_main / 1e6), runs=runs,
+                  outputs_bitwise_equal=all(
+                      torch.equal(u, v) for u, v in zip(outs["package"],
+                                                        outs["parent"])))
+
+        # phase 7's S = 4 classes (N = 8, and N = 2 at capacity 8) and a
+        # two-gear one, B = MG_B, on jittered fixtures as phases 7 and 8.6
+        # build them, each in its kernel class: kernel B beside the other
+        # build in turns
+        for ns in ((8, 2), *S4_CLASSES):
+            dims_m = _mg_dims(ns)
+            make = scenarios.gear_scenario if len(ns) == 2 \
+                else scenarios.multi_gear_scenario
+            bm = from_numpy(_jittered(make, dims_m, MG_B, 13), Scenario,
+                            device=dev, dtype=torch.float32)
+            dims_e = pallas_solve.embedded_class(dims_m)
+            _b, x0m, scm, kcm, _D = pallas_solve._prep(
+                pallas_solve.embed_scenario(bm, dims_m, dims_e), w, dims_e,
+                torch.float32, "auto")
+            f0m, g0m = _cuda.launch_eval_fg(x0m, scm, kcm, sw, dims_e, "auto")
+            runs, outs = [], {}
+            for name, solve_b in turns * 2:
+                keep = {}
+
+                def run():
+                    keep["r"] = solve_b(x0m, f0m, g0m, scm, kcm, sw, dims_e,
+                                        "auto", p, iters, tuned)
+
+                runs.append({"build": name, "ms": _cuda_ms(run, reps=3)})
+                outs.setdefault(name, keep["r"])
+            _emit("kernel_B_ab_class", Ns=list(ns), B=MG_B, runs=runs,
                   outputs_bitwise_equal=all(
                       torch.equal(u, v) for u, v in zip(outs["package"],
                                                         outs["parent"])))
@@ -2693,39 +3069,46 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     # bminor leg) per rank ----
     sharded = _sharded_phase(res, B_main, iters)
 
+    # ---- 14. the class domain: N = 5 / 6 / 16, Ns = (16, 8), m = 64 / 256
+    cd_launches, cd_rows_a, cd_rows_b = _class_domain_phase(
+        cfg, w, sw, tuned, iters, ctx, big, res, a_gate)
+
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
-         "source": "dftpav_tpu_torch/csrc/kernels.cu",
+         "source": "dftpav_tpu_torch/csrc/kernels.cuh",
          "replaces": "dftpav_tpu/ops/kcost.py:772",
          "launches": launches["eval_fg"], "max_abs_err": err_a,
          "err_of": f"f and g vs plain float32 at B={B_chk}",
          "launches_by_path": {"main": launches["eval_fg"],
                               "multigear": mg_launches[0],
                               **{k: v[0] for k, v in rp_paths.items()},
-                              "sharded": sharded[0]},
-         "per_class": [{"ns": r["ns"], "ms": r["ms_a"],
+                              "sharded": sharded[0],
+                              "class_domain": cd_launches[0]},
+         "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_a"],
                         "plain_ms": r["plain_ms_a"],
                         "bound_ms": r["bound_ms_a"],
                         "bound_by": r["bound_by_a"],
                         "max_abs_err": r["max_abs_err_a"],
                         "err_of": "f and g vs plain float64 at the class's "
-                                  "x0"} for r in mg_rows],
+                                  "x0"} for r in mg_rows] + cd_rows_a,
          "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"],
          "bound_ms": times_main["bound_ms_a"],
          "bound_by": times_main["bound_by_a"], "library_ms": None},
         {"name": "dftpav_solve_fused", "route": "cuda",
-         "source": "dftpav_tpu_torch/csrc/kernels.cu",
+         "source": "dftpav_tpu_torch/csrc/kernels.cuh",
          "replaces": "dftpav_tpu/ops/pallas_solve.py:567",
          "launches": launches["solve_fused"], "max_abs_err": err_b,
          "err_of": "final f after 12 iterations, lanes whose path matched",
          "launches_by_path": {"main": launches["solve_fused"],
                               "multigear": mg_launches[1],
                               **{k: v[1] for k, v in rp_paths.items()},
-                              "sharded": sharded[1]},
-         "per_class": [{"ns": r["ns"], "ms": r["ms_b"],
+                              "sharded": sharded[1],
+                              "class_domain": cd_launches[1]},
+         "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_b"],
                         "plain_ms_f64": r["plain_ms_b_f64"],
                         "bound_ms": r["bound_ms_b"],
-                        "bound_by": r["bound_by_b"]} for r in mg_rows],
+                        "bound_by": r["bound_by_b"]} for r in mg_rows]
+         + cd_rows_b,
          "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"],
          "bound_ms": times_main["bound_ms_b"],
          "bound_by": times_main["bound_by_b"], "library_ms": None},

@@ -208,7 +208,8 @@ enum WIdx {
   W_NS = 35,      // kMaxS values: pieces n_s of segment s
   W_RS = 39,      // kMaxS values: weighted sample rows of segment s
   W_SIG = 43,     // kMaxS values: virtual-time sigma of segment s
-  W_LEN = 47
+  W_CAP = 47,     // capacity: the pieces per segment the layout has room for
+  W_LEN = 48
 };
 
 template <class T>
@@ -217,7 +218,7 @@ struct KW {
   T mfv, mfa, mfc, mbv, mba, mbc;
   T mini_t, epis, alpha, cost_scale, near_r2, d_min, non_sinv;
   T le[4][2], eh[4][2];
-  int nseg, ns[kMaxS], rs[kMaxS];
+  int nseg, ns[kMaxS], rs[kMaxS], cap;
   T sig[kMaxS];
 };
 
@@ -237,6 +238,7 @@ DFT_HD KW<T> make_kw(const S* a) {
       w.eh[e][j] = T(a[W_EH + 2 * e + j]);
     }
   w.nseg = int(a[W_NSEG]);
+  w.cap = int(a[W_CAP]);
   for (int s = 0; s < kMaxS; ++s) {
     w.ns[s] = int(a[W_NS + s]);
     w.rs[s] = int(a[W_RS + s]);
@@ -488,18 +490,21 @@ DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
 // One lane's evaluation, split over the members of a team
 // ---------------------------------------------------------------------------
 
+// The layout of a class of capacity N (pieces per segment the decision
+// vector and the rhs have room for; a segment's own piece count n_s <= N
+// is read at run time) and S segments.
 template <int N, int S = 1>
 struct KDims {
   static constexpr int C = N + 5;                 // rhs rows per dimension
   static constexpr int NIN = 2 * S * (N - 1);     // inner-waypoint rows
   static constexpr int DIM = NIN + S + 3 * (S - 1);  // decision length
   static constexpr int DP = ((DIM + 7) / 8) * 8 > 16 ? ((DIM + 7) / 8) * 8 : 16;
+  // slots of a member's gradient partials: the 2 (N + 5) rhs entries, then
+  // d/d dT and d/d tt (the segment's time offset); a power of two and a
+  // multiple of every team size (32 up to N = 10, 64 up to N = 26)
+  static constexpr int ACC = 2 * C + 2 <= 32 ? 32 : 64;
+  static_assert(2 * C + 2 <= ACC, "gradient slots");
 };
-
-// Slots of a member's gradient partials: the 2 (N + 5) rhs entries, then
-// d/d dT and d/d tt (the segment's time offset); a multiple of every team
-// size.
-constexpr int kAcc = 32;
 
 // A member's gradient partials in the team's scratch: slot i of member m
 // at p[i * G] (p = base + m), so that the members of a warp touch
@@ -544,7 +549,7 @@ struct LaneData {
   double* rhs;           // [2][C]
   T* qr;                 // [2][C] Q rhs
   NearPair<T>* ring;     // [2 G]
-  T* acc;                // [kAcc][G] the members' gradient partials
+  T* acc;                // [ACC][G] the members' gradient partials
   T* sb;                 // [12] the segment's boundary after the junctions
   T* gb;                 // [8] gradients of the junction-fed boundary rows
   // the segment being evaluated
@@ -956,6 +961,7 @@ template <class T, int N, int S, class Team>
 DFT_HD T lane_eval(const Team& tm, LaneData<T>& L, const KW<T>& w) {
   constexpr int C = N + 5, NE = 2 * C;
   constexpr int NIN = KDims<N, S>::NIN, DP = KDims<N, S>::DP;
+  constexpr int kAcc = KDims<N, S>::ACC;
   constexpr int G = Team::G, KR = Team::kRun, per = kAcc / G;
   static_assert(NE + 2 <= kAcc && kAcc % G == 0, "gradient slots");
   if (S > 1)      // the gear rows of g accumulate over the segments

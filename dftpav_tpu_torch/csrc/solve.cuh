@@ -5,18 +5,20 @@
 // the same round loop as dftpav_tpu_torch/ops/pallas_solve.py _solve_rounds
 // (the plain reference): each round evaluates the trial point; Lewis-Overton
 // accept or bracket (lbfgs.hpp:276-389); on accept the g_epsilon and past-delta
-// stop tests, the cautious m = 16 history update, the two-loop direction and
-// the next line-search setup with the adaptive warm step. A lane that is not
-// RUNNING never changes again, so exiting it at once is the same as the TPU
-// tile idling it until its slowest lane finished.
+// stop tests, the cautious history update (m pairs, LBFGSParams.mem_size),
+// the two-loop direction and the next line-search setup with the adaptive
+// warm step. A lane that is not RUNNING never changes again, so exiting it
+// at once is the same as the TPU tile idling it until its slowest lane
+// finished.
 //
 // Integer state (k, line-search count, status, history bound) is int, where
 // the TPU carried floats for Mosaic. The history is a ring indexed newest
-// first, where the TPU shifted a tuple of 16 arrays. The solver runs on a
+// first, where the TPU shifted a tuple of m arrays. The solver runs on a
 // team (team.cuh): on the card the lane's warp, each thread holding one
 // decision coordinate of every vector in registers (two or more above 32
-// coordinates, the multi-gear classes), the history and the evaluated point
-// in shared memory.
+// coordinates, the multi-gear classes), the evaluated point in shared
+// memory, the history there too up to kMemShared pairs and in a per-lane
+// scratch in global memory above (lane_history).
 #pragma once
 
 #include "kcost.cuh"
@@ -35,18 +37,31 @@ enum LIdx {
   L_S_CURV, L_CAUTIOUS, L_MACHINE_PREC, L_AD_LO, L_AD_MULT, L_LEN
 };
 
-constexpr int kMem = 16;      // history length m
-constexpr int kMaxPast = 8;   // past-f window bound
+// History pairs (m) that a warp's slice of shared memory holds; a longer
+// history lies in a per-lane scratch in global memory (lane_history).
+constexpr int kMemShared = 16;
+// Past-f window slots a slice reserves at least (it holds max(past, this)).
+constexpr int kPastSlots = 8;
+
+// At capacity 8, kernel B is also built with m = kMemShared fixed at
+// compile time (lane_solve's KM): the history then stays in the slice and
+// its ring has a constant length, the code the m = 16 classes (the main
+// path's) ran before m became a run-time value; with m at run time their
+// kernel B measured 4-16% slower on the bench class (more instructions,
+// history loads that may be shared or global; PERF.md section 6). Other
+// m, and capacity 16, run with m at run time (KM = 0).
+template <int N>
+constexpr int kFixedMem = N == 8 ? kMemShared : 0;
 
 template <class T>
 struct LP {
   T delta, delta_past, g_eps, min_step, max_step, f_dec, s_curv, cautious,
       machine_prec, ad_lo, ad_mult;
-  int max_iter, max_ls, past, adaptive;
+  int max_iter, max_ls, mem, past, adaptive;
 };
 
 template <class T, class S>
-DFT_HD LP<T> make_lp(const S* a, int max_iter, int max_ls, int past,
+DFT_HD LP<T> make_lp(const S* a, int max_iter, int max_ls, int mem, int past,
                      int adaptive) {
   LP<T> p;
   p.delta = T(a[L_DELTA]); p.delta_past = T(a[L_DELTA_PAST]);
@@ -55,7 +70,7 @@ DFT_HD LP<T> make_lp(const S* a, int max_iter, int max_ls, int past,
   p.s_curv = T(a[L_S_CURV]); p.cautious = T(a[L_CAUTIOUS]);
   p.machine_prec = T(a[L_MACHINE_PREC]); p.ad_lo = T(a[L_AD_LO]);
   p.ad_mult = T(a[L_AD_MULT]);
-  p.max_iter = max_iter; p.max_ls = max_ls; p.past = past;
+  p.max_iter = max_iter; p.max_ls = max_ls; p.mem = mem; p.past = past;
   p.adaptive = adaptive;
   return p;
 }
@@ -64,10 +79,11 @@ struct SolveOut {
   int status, k, n_evals;
 };
 
-// Where the solver keeps what it indexes at run time: the m = 16 history
-// pairs s, y [kMem][DP] (newest first from `head`, a ring), their s.y, the
-// two-loop's alphas and the past-f window (the team's scratch: shared
-// memory on the card).
+// Where the solver keeps what it indexes at run time: the m history pairs
+// s, y [m][DP] (newest first from `head`, a ring), their s.y, the
+// two-loop's alphas (the team's scratch, or the lane's global scratch for a
+// long history) and the past-f window (the team's scratch: shared memory on
+// the card).
 template <class T>
 struct SolverMem {
   T* s;
@@ -75,7 +91,24 @@ struct SolverMem {
   T* ys;
   T* alpha;
   T* pf;
+  int m;
 };
+
+// Floats of one lane's history in a per-lane scratch [B][hist_floats]:
+// s [m][DP], y [m][DP], ys [m], alpha [m].
+DFT_HD size_t hist_floats(int m, int DP) {
+  return 2 * (size_t)m * DP + 2 * (size_t)m;
+}
+
+// Points M's history at lane `lane`'s part of such a scratch.
+template <class T>
+DFT_HD void lane_history(SolverMem<T>& M, T* base, int lane, int DP) {
+  T* h = base + (size_t)lane * hist_floats(M.m, DP);
+  M.s = h;
+  M.y = h + (size_t)M.m * DP;
+  M.ys = h + 2 * (size_t)M.m * DP;
+  M.alpha = M.ys + M.m;
+}
 
 // Dot product and max-abs of solver vectors whose coordinates the team
 // holds kVec at a time (team.cuh).
@@ -92,6 +125,16 @@ DFT_HD T tmaxabs(const Team& tm, const T* a) {
   return tm.vmax(t);
 }
 
+// Slot i of a ring of m history slots, 0 <= i < 2 m. KM > 0: m is KM,
+// known at compile time (the m = 16 kernels, whose code stays what it was
+// before m became a run-time value); KM = 0: m is a run-time value, and a
+// modulo by it would cost an integer division per history pair.
+template <int KM>
+DFT_HD int ring_slot(int i, int m) {
+  if (KM > 0) return i % KM;
+  return i < m ? i : i - m;
+}
+
 // Solve the lane whose data L holds, from x0 with its objective value f0
 // and gradient g0 already evaluated (kernel A); x0, g0 and x_out are this
 // object's coordinates of the vectors (coordinate tm.coord(k) at k; those
@@ -99,8 +142,9 @@ DFT_HD T tmaxabs(const Team& tm, const T* a) {
 // Writes the final base point to x_out and its objective to *f_out.
 // Returns status, k clamped to max_iter, evaluations. Every team-reduced
 // value is bitwise identical on all members, so all members take the same
-// branches.
-template <class T, int N, int S, class Team>
+// branches. KM: the history length when it is fixed at compile time (then
+// M.m == KM), else 0 (ring_slot).
+template <class T, int N, int S, int KM, class Team>
 DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
                            const KW<T>& w, const LP<T>& p,
                            const SolverMem<T>& M, const T* x0, T f0,
@@ -111,6 +155,7 @@ DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
     return tm.valid(c) ? a[tm.coord(c)] : T(0);
   };
   T xp[V], gp[V], d[V], xt[V], gt[V];
+  const int mem = KM > 0 ? KM : M.m;
   const int past = p.past > 1 ? p.past : 1;
   const bool use_past = p.past > 0;
 
@@ -198,19 +243,19 @@ DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
       const T cau = tdot(tm, s, s) * m_sqrt(tdot(tm, gp, gp)) * p.cautious;
       const bool do_up = running && ys > cau;
       if (do_up) {
-        head = (head + kMem - 1) % kMem;
+        head = ring_slot<KM>(head + mem - 1, mem);
         for (int c = 0; c < V; ++c)
           if (tm.valid(c)) {
             M.s[head * DP + tm.coord(c)] = s[c];
             M.y[head * DP + tm.coord(c)] = y[c];
           }
         M.ys[head] = ys;
-        bound = bound + 1 < kMem ? bound + 1 : kMem;
+        bound = bound + 1 < mem ? bound + 1 : mem;
         // two-loop recursion, newest entry first
         T hv[V];
         for (int c = 0; c < V; ++c) d[c] = -gt[c];
         for (int j = 0; j < bound; ++j) {
-          const int h = (head + j) % kMem;
+          const int h = ring_slot<KM>(head + j, mem);
           for (int c = 0; c < V; ++c) hv[c] = ld(M.s + h * DP, c);
           const T a = tdot(tm, hv, d) / M.ys[h];
           for (int c = 0; c < V; ++c) d[c] = d[c] - a * ld(M.y + h * DP, c);
@@ -219,7 +264,7 @@ DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
         const T scale = ys / m_max(yy, T(1e-30));
         for (int c = 0; c < V; ++c) d[c] = d[c] * scale;
         for (int j = bound - 1; j >= 0; --j) {
-          const int h = (head + j) % kMem;
+          const int h = ring_slot<KM>(head + j, mem);
           for (int c = 0; c < V; ++c) hv[c] = ld(M.y + h * DP, c);
           const T b = tdot(tm, hv, d) / M.ys[h];
           for (int c = 0; c < V; ++c)

@@ -23,12 +23,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from dftpav_tpu_torch.config import resolve_vt_scale
-from dftpav_tpu_torch.ops.kcost import (KConsts, KScenario, StaticW,
-                                        bnd_rows, dp_of, misc_rows, r_rows,
+from dftpav_tpu_torch.ops.kcost import (CAPACITIES, KConsts, KScenario,
+                                        StaticW, bnd_rows, dp_of,
+                                        kernel_class, misc_rows, r_rows,
                                         seg_active)
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -69,8 +72,9 @@ def library_path(csrc=CSRC) -> pathlib.Path:
 def build(csrc=CSRC) -> pathlib.Path:
     """Compile csrc/*.cu (one nvcc per source, in parallel) and link them,
     unless the library for these sources exists. The compilers' register
-    and spill reports go to `<library>.log`. `csrc` is the package's own
-    unless a caller names another checkout's (chip_smoke.py --parent)."""
+    and spill reports and each nvcc's seconds go to `<library>.log`.
+    `csrc` is the package's own unless a caller names another checkout's
+    (chip_smoke.py --parent)."""
     csrc = pathlib.Path(csrc)
     so = library_path(csrc)
     if so.exists():
@@ -81,17 +85,22 @@ def build(csrc=CSRC) -> pathlib.Path:
     objs = [so.with_name(f"{so.stem}.{s.stem}.{tag}.o") for s in srcs]
     cmds = [[nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", str(o), str(s)]
             for s, o in zip(srcs, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    outs = [p.communicate() for p in procs]
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        procs = list(pool.map(run, cmds))
     tmp = so.with_suffix(f".{tag}.tmp")
     link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
     log, failed = [], None
-    for c, p, (out, err) in zip(cmds, procs, outs):
-        log.append(" ".join(c) + "\n" + out + err)
+    for c, (p, sec) in zip(cmds, procs):
+        log.append(" ".join(c) + f"\n[nvcc {sec:.1f} s]\n" + p.stdout
+                   + p.stderr)
         if p.returncode != 0 and failed is None:
-            failed = (p.returncode, err)
+            failed = (p.returncode, p.stderr)
     if failed is None:
         proc = subprocess.run(link, capture_output=True, text=True)
         log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
@@ -125,18 +134,22 @@ def library():
 def load(so):
     """The kernel library at path `so`, its entry points typed."""
     lib = ctypes.CDLL(str(so))
-    lib.dftpav_eval_fg.argtypes = [_P] * 11 + [_I] * 5 + [_P] * 3
+    lib.dftpav_eval_fg.argtypes = [_P] * 11 + [_I] * 5 + [_P] * 4
     lib.dftpav_eval_fg.restype = _I
-    lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 9 + [_P] * 6
+    lib.dftpav_solve_fused.argtypes = [_P] * 14 + [_I] * 10 + [_P] * 5
     lib.dftpav_solve_fused.restype = _I
     lib.dftpav_corridor_fwd.argtypes = [_P] * 7 + [_I] * 3 + [_P] * 2
     lib.dftpav_corridor_fwd.restype = _I
     lib.dftpav_corridor_bwd.argtypes = [_P] * 8 + [_I] * 3 + [_P] * 4
     lib.dftpav_corridor_bwd.restype = _I
-    lib.dftpav_kernel_info.argtypes = [_I, _P] + [_I] * 3 + [_P]
+    lib.dftpav_kernel_info.argtypes = [_I, _P] + [_I] * 5 + [_P]
     lib.dftpav_kernel_info.restype = _I
-    lib.dftpav_kernel_dp.argtypes = [_I]
+    lib.dftpav_kernel_dp.argtypes = [_I, _I]
     lib.dftpav_kernel_dp.restype = _I
+    lib.dftpav_kernel_caps.argtypes = [_P, _I]
+    lib.dftpav_kernel_caps.restype = _I
+    lib.dftpav_scratch_bytes.argtypes = [_I, _P] + [_I] * 7 + [_P]
+    lib.dftpav_scratch_bytes.restype = _I
     lib.dftpav_error_string.argtypes = [_I]
     lib.dftpav_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,32 +164,76 @@ def _check(name, t, shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def _check_inputs(lib, x, sc: KScenario, kc: KConsts, dims):
-    if dims.S > lib.dftpav_kernel_max_s():
+# The kernels' domain: gear segments (csrc/common.cuh kMaxS), pieces per
+# segment (the largest capacity, csrc/kernels.cu kCaps) and corridor
+# half-planes per row (kMaxH); _check_inputs holds a class to the loaded
+# library's own limits.
+MAX_S = 4
+MAX_N = max(CAPACITIES)
+MAX_H = 8
+
+
+def check_domain(dims, max_s: int = MAX_S, max_n: int = MAX_N,
+                 max_h: int = MAX_H, mem: int = 1, past: int = 0) -> None:
+    """Raise NotImplementedError for a class the kernels do not take (more
+    than max_s gear segments, a segment of more than max_n or fewer than 2
+    pieces, more than max_h half-planes; the plain round loop takes every
+    class), ValueError for an L-BFGS memory below 1 or a negative past
+    window. Every other class runs, at any m and past."""
+    if dims.S > max_s:
         raise NotImplementedError(
-            f"the kernels take at most {lib.dftpav_kernel_max_s()} gear "
-            f"segments; got S={dims.S} (the plain round loop takes any S)")
-    if dims.N != lib.dftpav_kernel_n() or \
-            dp_of(dims) != lib.dftpav_kernel_dp(dims.S):
+            f"the kernels take at most {max_s} gear segments (S <= {max_s}); "
+            f"got S={dims.S} (the plain round loop takes any S)")
+    ns = dims.ns_tuple
+    if max(ns) > max_n or min(ns) < 2:
         raise NotImplementedError(
-            f"the kernels are built for N={lib.dftpav_kernel_n()} pieces; "
-            f"got N={dims.N}")
-    if dims.H > lib.dftpav_max_h():
-        raise NotImplementedError(f"H={dims.H} > {lib.dftpav_max_h()}")
-    B, S = x.shape[-1], dims.S
-    R, C, O = r_rows(dims), dims.N + 5, max(dims.O, 1)
-    _check("x", x, (dp_of(dims), B))
-    _check("bnd", sc.bnd, (bnd_rows(dims), B))
-    _check("misc", sc.misc, (misc_rows(dims), B))
-    _check("corr_n", sc.corr_n, (dims.H, 2, S * R, B))
-    _check("corr_p", sc.corr_p, (dims.H, 2, S * R, B))
-    _check("corr_m", sc.corr_m, (dims.H, S * R, B))
-    _check("obs_c", sc.obs_c, (O, 2, 6 * dims.Po, B))
+            f"the kernels take 2 to {max_n} pieces per segment "
+            f"(N <= {max_n}); got {ns} (the plain round loop takes any N)")
+    if dims.H > max_h:
+        raise NotImplementedError(f"the kernels take at most {max_h} "
+                                  f"half-planes per row; got H={dims.H}")
+    if mem < 1 or past < 0:
+        raise ValueError(f"L-BFGS memory m={mem} (>= 1) and past={past} "
+                         f"(>= 0)")
+
+
+def capacities(lib) -> tuple:
+    """The capacities (pieces per segment) the library has kernels for."""
+    out = (ctypes.c_int * 8)()
+    n = lib.dftpav_kernel_caps(out, 8)
+    return tuple(out[:n])
+
+
+def _check_inputs(lib, x, sc: KScenario, kc: KConsts, dims, mem=1, past=0):
+    """The class's domain (check_domain, with the library's limits), and
+    the tensors' shapes in the layout of its kernel class; returns (B, R,
+    the kernel class)."""
+    # S first: it needs only the library's kMaxS
+    check_domain(dims, max_s=lib.dftpav_kernel_max_s(), mem=mem, past=past)
+    caps = capacities(lib)
+    check_domain(dims, max_n=max(caps), max_h=lib.dftpav_max_h())
+    kd = kernel_class(dims)
+    if kd.N != dims.N:
+        raise ValueError(f"a class of N={dims.N} runs in its capacity-{kd.N} "
+                         f"layout: pallas_solve.embedded_class / "
+                         f"embed_scenario")
+    if kd.N not in caps or dp_of(kd) != lib.dftpav_kernel_dp(kd.N, kd.S):
+        raise NotImplementedError(f"no kernels of capacity {kd.N} at S={kd.S} "
+                                  f"in this library (capacities {caps})")
+    B, S = x.shape[-1], kd.S
+    R, C, O = r_rows(kd), kd.N + 5, max(kd.O, 1)
+    _check("x", x, (dp_of(kd), B))
+    _check("bnd", sc.bnd, (bnd_rows(kd), B))
+    _check("misc", sc.misc, (misc_rows(kd), B))
+    _check("corr_n", sc.corr_n, (kd.H, 2, S * R, B))
+    _check("corr_p", sc.corr_p, (kd.H, 2, S * R, B))
+    _check("corr_m", sc.corr_m, (kd.H, S * R, B))
+    _check("obs_c", sc.obs_c, (O, 2, 6 * kd.Po, B))
     _check("P", kc.P, (S, 3, R, C))
     _check("gridc", kc.gridc, (S, 2, R, 1))
     if kc.Q.shape[0] != S or kc.Q.shape[-1] != C or not kc.Q.is_cuda:
         raise ValueError(f"Q: shape {tuple(kc.Q.shape)}")
-    return B, R
+    return B, R, kd
 
 
 def seg_rows(dims) -> list:
@@ -189,17 +246,12 @@ def seg_rows(dims) -> list:
     return [min(R, -(-seg_active(dims, s) // 8) * 8) for s in range(dims.S)]
 
 
-# Gear segments the kernels take (csrc/common.cuh kMaxS): the class at the
-# weight vector's end has this many slots per field.
-MAX_S = 4
-
-
 def weight_vector(sw: StaticW, sigma, dims, max_s: int = MAX_S):
     """The kernels' weight vector (csrc/kcost.cuh WIdx order), computed in
     double on the host and rounded once to float32: the weights, hull and
     the class (segments, piece counts, rows kept, per-segment virtual-time
-    sigma; `sigma` as EngineFlags.vt_scale takes it). `max_s`: the slots
-    per field of the class, a build's kMaxS."""
+    sigma, capacity; `sigma` as EngineFlags.vt_scale takes it). `max_s`:
+    the slots per field of the class, a build's kMaxS."""
     sig = resolve_vt_scale(sigma, dims.ns_tuple)
     vals = [sw.wei_obs, sw.wei_surround, sw.wei_feas, sw.wei_time,
             sw.max_forward_vel, sw.max_forward_acc, sw.max_forward_cur,
@@ -214,9 +266,11 @@ def weight_vector(sw: StaticW, sigma, dims, max_s: int = MAX_S):
 
 def _class_vector(dims, sig, max_s: int = MAX_S):
     """S, then per segment (max_s slots, the unused ones repeating
-    segment 0) its pieces, rows kept and sigma."""
+    segment 0) its pieces, rows kept and sigma, then the capacity of its
+    kernel class."""
     pad = lambda v: list(v)[:max_s] + [v[0]] * (max_s - len(v))
-    return [dims.S, *pad(dims.ns_tuple), *pad(seg_rows(dims)), *pad(sig)]
+    return [dims.S, *pad(dims.ns_tuple), *pad(seg_rows(dims)), *pad(sig),
+            kernel_class(dims).N]
 
 
 def _weights(lib, sw, sigma, dims):
@@ -249,22 +303,45 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _scratch(lib, which, w, B, R, dims, mem, past, device):
+    """The scratch buffer kernel `which` (0: A, 1: B) needs for this class
+    and batch (csrc/kernels.cuh scratch_layout), or None for none."""
+    n = ctypes.c_longlong(0)
+    rc = lib.dftpav_scratch_bytes(which, ctypes.addressof(w), B, R, dims.H,
+                                  dims.O, dims.Po, mem, past,
+                                  ctypes.addressof(n))
+    if rc != 0:
+        raise NotImplementedError(
+            f"the kernels cannot lay out the class {dims} (m={mem}, "
+            f"past={past}): CUDA error {rc}: "
+            f"{lib.dftpav_error_string(rc).decode()}")
+    if n.value == 0:
+        return None
+    return torch.empty(n.value, dtype=torch.uint8, device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def launch_eval_fg(x, sc: KScenario, kc: KConsts, sw: StaticW, dims,
                    sigma):
     """Kernel A: (f [B], g [DP, B]) at x [DP, B]. sigma: the virtual-time
-    preconditioning, as EngineFlags.vt_scale takes it."""
+    preconditioning, as EngineFlags.vt_scale takes it. dims: the class in
+    its kernel layout (a KClass, or a Dims of capacity N)."""
     lib = library()
-    B, R = _check_inputs(lib, x, sc, kc, dims)
-    Q = kc.Q[:, :dims.N + 5].contiguous()
+    B, R, kd = _check_inputs(lib, x, sc, kc, dims)
+    Q = kc.Q[:, :kd.N + 5].contiguous()
     f = torch.empty(B, dtype=torch.float32, device=x.device)
     g = torch.empty_like(x)
-    w = _weights(lib, sw, sigma, dims)
+    w = _weights(lib, sw, sigma, kd)
+    scratch = _scratch(lib, 0, w, B, R, kd, 1, 0, x.device)
     rc = lib.dftpav_eval_fg(
         x.data_ptr(), sc.bnd.data_ptr(), sc.misc.data_ptr(),
         sc.corr_n.data_ptr(), sc.corr_p.data_ptr(), sc.corr_m.data_ptr(),
         sc.obs_c.data_ptr(), kc.P.data_ptr(), Q.data_ptr(),
-        kc.gridc.data_ptr(), ctypes.addressof(w), B, R, dims.H, dims.O,
-        dims.Po, f.data_ptr(), g.data_ptr(), _stream())
+        kc.gridc.data_ptr(), ctypes.addressof(w), B, R, kd.H, kd.O, kd.Po,
+        f.data_ptr(), g.data_ptr(), _ptr(scratch), _stream())
     _raise_on(lib, rc, "dftpav_eval_fg")
     return f, g
 
@@ -279,53 +356,58 @@ def launch_solve_fused(x0, f0, g0, sc: KScenario, kc: KConsts, sw: StaticW,
 
 def solve_fused_with(lib, x0, f0, g0, sc: KScenario, kc: KConsts,
                      sw: StaticW, dims, sigma, p, max_iter: int, flags):
-    """launch_solve_fused through the kernel library `lib` (from `load`)."""
-    B, R = _check_inputs(lib, x0, sc, kc, dims)
+    """launch_solve_fused through the kernel library `lib` (from `load`).
+    The L-BFGS memory and past window are p's (any m >= 1, past >= 0)."""
+    m, past = int(p.mem_size), int(p.past)
+    B, R, kd = _check_inputs(lib, x0, sc, kc, dims, m, past)
     _check("f0", f0, (B,))
     _check("g0", g0, tuple(x0.shape))
-    if p.mem_size != lib.dftpav_mem() or p.past > lib.dftpav_max_past():
-        raise NotImplementedError(
-            f"the kernel is built for mem_size={lib.dftpav_mem()} and "
-            f"past <= {lib.dftpav_max_past()}")
-    Q = kc.Q[:, :dims.N + 5].contiguous()
+    Q = kc.Q[:, :kd.N + 5].contiguous()
     x = torch.empty_like(x0)
     f = torch.empty(B, dtype=torch.float32, device=x0.device)
     info = torch.empty((3, B), dtype=torch.int32, device=x0.device)
-    # the persistent grid's lane counter, zeroed on the current stream, and
-    # the half-planes' lane-major copy the launch writes
-    queue = torch.zeros(1, dtype=torch.int32, device=x0.device)
-    planes = torch.empty(B * 5 * dims.H * dims.S * R, dtype=torch.float32,
-                         device=x0.device)
-    w = _weights(lib, sw, sigma, dims)
+    w = _weights(lib, sw, sigma, kd)
     lp = _floats(lbfgs_vector(p, flags), lib.dftpav_lbfgs_len())
+    # the persistent grid's lane counter (zeroed by the launch), the
+    # half-planes' lane-major copy, and the constants and history where
+    # they leave shared memory
+    scratch = _scratch(lib, 1, w, B, R, kd, m, past, x0.device)
     rc = lib.dftpav_solve_fused(
         x0.data_ptr(), f0.data_ptr(), g0.data_ptr(), sc.bnd.data_ptr(),
         sc.misc.data_ptr(), sc.corr_n.data_ptr(), sc.corr_p.data_ptr(),
         sc.corr_m.data_ptr(), sc.obs_c.data_ptr(), kc.P.data_ptr(),
         Q.data_ptr(), kc.gridc.data_ptr(), ctypes.addressof(w),
-        ctypes.addressof(lp), int(max_iter), int(p.max_linesearch),
-        int(p.past), int(bool(flags.adaptive_step)), B, R, dims.H, dims.O,
-        dims.Po, x.data_ptr(), f.data_ptr(), info.data_ptr(),
-        queue.data_ptr(), planes.data_ptr(), _stream())
+        ctypes.addressof(lp), int(max_iter), int(p.max_linesearch), m, past,
+        int(bool(flags.adaptive_step)), B, R, kd.H, kd.O, kd.Po,
+        x.data_ptr(), f.data_ptr(), info.data_ptr(), _ptr(scratch),
+        _stream())
     _raise_on(lib, rc, "dftpav_solve_fused")
     return x, f, info
 
 
-def kernel_info(dims, which: str) -> dict:
+def kernel_info(dims, which: str, mem: int = 16, past: int = 3) -> dict:
     """Registers, local memory, resident warps per SM, persistent-grid
-    blocks and shared memory of kernel "A" or "B" on this card, for the
-    class `dims` (the occupancy API; nothing is launched)."""
+    blocks and shared memory of kernel "A" or "B" on this card, and where
+    the class constants and (B) the history of m = mem pairs lie, for the
+    class `dims` in its kernel layout (the occupancy API; nothing is
+    launched)."""
     lib = library()
-    out = (ctypes.c_int * 5)()
+    kd = kernel_class(dims)
+    out = (ctypes.c_int * 8)()
     # the launch plan reads only the class at the vector's end
-    cls = _class_vector(dims, (1.0,) * dims.S, lib.dftpav_kernel_max_s())
+    cls = _class_vector(kd, (1.0,) * kd.S, lib.dftpav_kernel_max_s())
     w = _floats([0.0] * (lib.dftpav_weight_len() - len(cls)) + cls,
                 lib.dftpav_weight_len())
     rc = lib.dftpav_kernel_info("AB".index(which), ctypes.addressof(w),
-                                r_rows(dims), dims.O, dims.Po, out)
+                                r_rows(kd), kd.O, kd.Po, mem, past, out)
     _raise_on(lib, rc, "dftpav_kernel_info")
-    return dict(zip(("registers", "local_bytes", "resident_warps_per_sm",
-                     "blocks", "smem_bytes"), list(out)))
+    info = dict(zip(("registers", "local_bytes", "resident_warps_per_sm",
+                     "blocks", "smem_bytes"), list(out)[:5]))
+    info["consts"] = "global" if out[5] else "shared"
+    info["history"] = ("none" if which == "A" else
+                       "global" if out[6] else "shared")
+    info["capacity"] = out[7]
+    return info
 
 
 def _check_penalty(lib, sig, dsig, wq, corr_n, corr_p, corr_mask, le):

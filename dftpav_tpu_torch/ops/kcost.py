@@ -20,7 +20,10 @@ Any S and per-segment piece classes (Dims.Ns): segments are a loop over the
 same rows, each with its own sample maps (built for its piece count n_s,
 zero-padded to C = N+5 rhs columns), gear-junction boundary overrides read
 from the decision vector, and absolute obstacle time offset by the earlier
-segments' durations. The kernels take S <= 3 (ops/_cuda.py).
+segments' durations. Every function here also takes a KClass, the layout
+the kernels run a class in: N there is a capacity (8 or 16) and each
+segment's own piece count n_s is any from 2 to N (kernel_class). The
+kernels take S <= 4 (ops/_cuda.py).
 """
 
 from __future__ import annotations
@@ -44,6 +47,42 @@ DP = 16  # padded decision rows for the S=1 bench class (dim = 15 at N=8)
 
 def _pad8(n: int) -> int:
     return ((n + 7) // 8) * 8
+
+
+# Pieces per segment the kernels have layouts for (csrc/kernels.cu kCaps).
+CAPACITIES = (8, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class KClass(Dims):
+    """A class as the kernels lay it out: N is the capacity (the pieces per
+    segment the decision vector, the rhs and the corridor slabs have room
+    for) and Ns the segments' own piece counts, any from 2 to N (Dims wants
+    divisors of N). Segment s's inner waypoints fill the leading n_s - 1 of
+    its N - 1 rows and its corridor rows the leading n_s pieces; the rest
+    is zero and carries zero gradient."""
+
+    def __post_init__(self):
+        ns = tuple(int(n) for n in (self.Ns if self.Ns is not None
+                                    else (self.N,) * self.S))
+        if len(ns) != self.S or not all(2 <= n <= self.N for n in ns):
+            raise ValueError(f"KClass: piece counts {ns} for S={self.S} "
+                             f"within a capacity of N={self.N}")
+        object.__setattr__(self, "Ns", ns)
+
+
+def kernel_class(dims: Dims) -> KClass:
+    """The layout the kernels run `dims` in: the smallest capacity that
+    holds every segment's piece count (a uniform N <= 8 at capacity 8 with
+    Ns = (N,) * S, N from 9 to 16 at capacity 16; per-segment classes keep
+    their counts). A class no capacity holds keeps its N (the kernels
+    refuse it: ops/_cuda.py check_domain)."""
+    if isinstance(dims, KClass):
+        return dims
+    ns = dims.ns_tuple
+    cap = next((c for c in CAPACITIES if c >= max(ns)), dims.N)
+    return KClass(S=dims.S, N=cap, K=dims.K, Kdes=dims.Kdes, H=dims.H,
+                  O=dims.O, Po=dims.Po, Ns=ns)
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,31 +4,31 @@ search, as a plain PyTorch round loop and as a CUDA kernel.
 Same per-lane algorithm as `dftpav_tpu.ops.pallas_solve` (lbfgs.hpp
 semantics): every round evaluates each running lane's current trial point;
 lanes whose trial satisfies Lewis-Overton accept and finish their iteration
-(convergence and past-delta tests, cautious m=16 history update, two-loop
-direction) in the same round, the others bracket and retry. Lanes advance
-independently, so a batch pays the mean trial count per lane, not the max.
+(convergence and past-delta tests, cautious history update of m pairs,
+two-loop direction) in the same round, the others bracket and retry.
+Lanes advance independently, so a batch pays the mean trial count per
+lane, not the max.
 
 `solve_batch_fused` is the wrapper: for CUDA tensors it evaluates the
 initial point with kernel A (kcost.eval_fg) and runs the whole round loop
 with kernel B (csrc/kernels.cu `dftpav_solve_fused`, one warp per lane,
-each lane exiting on its own; S <= 3 gear segments of N = 8 pieces, or
-per-segment counts Dims.Ns that divide 8); for CPU tensors it runs the plain
-loop, any S and N. A uniform class of N = 2 or 4 pieces runs through the
-kernels in their N = 8 form Dims(S, N=8, Ns=(N,) * S) (embedded_class): its
-inner waypoints fill the leading rows of each segment and its corridor rows
-the leading pieces, the rest zero and masked. Those rows are inert (zero
-value and zero gradient), so the L-BFGS products are the native class's and
-only float32 summation order differs; the result is mapped back and
-finalized in the native class. The TPU's multi-phase lane compaction has
-no counterpart: it re-gathered the stragglers of 128-lane tiles that ran
-until their slowest lane finished, and was bit-identical per lane to the
-unphased solve, so a kernel whose lanes exit individually computes the same
-result without it.
+each lane exiting on its own; S <= 4 gear segments of 2 to 16 pieces each,
+any L-BFGS memory m and past window); for CPU tensors it runs the plain
+loop, any S and N. Every class runs in the layout of its kernel class
+(embedded_class, kcost.KClass): a capacity of 8 or 16 pieces per segment,
+each segment's inner waypoints in the leading rows of its N - 1 and its
+corridor rows in the leading pieces, the rest zero and masked. Those rows
+are inert (zero value and zero gradient), so the L-BFGS products are the
+native class's and only float32 summation order differs; the result is
+mapped back and finalized in the native class. The TPU's multi-phase lane
+compaction has no counterpart: it re-gathered the stragglers of 128-lane
+tiles that ran until their slowest lane finished, and was bit-identical
+per lane to the unphased solve, so a kernel whose lanes exit individually
+computes the same result without it.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -318,40 +318,37 @@ def solve_batch_rounds(batch: Scenario, w: Weights, dims: Dims,
     return (res, out.xp) if return_x else res
 
 
-# pieces per segment the kernels are compiled for (csrc/kernels.cu kN)
-KERNEL_N = 8
-
-
-def embedded_class(dims: Dims) -> Dims:
-    """The class the kernels run for `dims`: a uniform class of N = 2 or 4
-    pieces as Dims(S, N=8, Ns=(N,) * S); any other class as it is."""
-    if dims.Ns is None and dims.N in (2, 4):
-        return dataclasses.replace(dims, N=KERNEL_N, Ns=(dims.N,) * dims.S)
-    return dims
+# The class the kernels run a class in (kcost.KClass: capacity 8 for every
+# segment of at most 8 pieces, 16 above; the segments' own piece counts).
+embedded_class = kcost.kernel_class
 
 
 def embed_scenario(batch: Scenario, dims: Dims, dims_e: Dims) -> Scenario:
     """A batch of class dims in the layout of embedded_class(dims): each
     segment's inner waypoints in its leading rows and its corridor rows in
-    its leading pieces, zeros (and mask off) after them."""
-    if dims_e is dims:
+    its leading pieces, zeros (and mask off) after them; rows past a
+    segment's piece count are cut where the capacity is below dims.N."""
+    if dims_e.N == dims.N:
         return batch
 
-    def pad(a, rows):
+    def fit(a, rows):
         out = a.new_zeros(a.shape[:2] + (rows,) + a.shape[3:])
-        out[:, :, :a.shape[2]] = a
+        n = min(rows, a.shape[2])
+        out[:, :, :n] = a[:, :, :n]
         return out
 
     N = dims_e.N
     return batch._replace(
-        init_inner=pad(batch.init_inner, N - 1), corr_n=pad(batch.corr_n, N),
-        corr_p=pad(batch.corr_p, N), corr_mask=pad(batch.corr_mask, N))
+        init_inner=fit(batch.init_inner, N - 1), corr_n=fit(batch.corr_n, N),
+        corr_p=fit(batch.corr_p, N), corr_mask=fit(batch.corr_mask, N))
 
 
 def _move_x(x, dims_from: Dims, dims_to: Dims):
     """Packed decision rows x [DP, B] of one class as the other's, field by
     field in cost.unpack's order; inner waypoints keep their leading rows
-    (padded with zeros, or cut)."""
+    (padded with zeros, or cut). Two layouts of the same N are one."""
+    if dims_from.N == dims_to.N and dims_from.S == dims_to.S:
+        return x
     u = cost_mod.unpack(x[:dims_from.dim].T, dims_from)
     n = min(dims_from.N, dims_to.N) - 1
     inner = u.inner.new_zeros(u.inner.shape[:2] + (dims_to.N - 1, 2))
@@ -366,11 +363,11 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
                       x0_override=None, return_x: bool = False,
                       flags: EngineFlags | None = None):
     """The whole solve on the card: float32, kernel A for the initial
-    evaluation, kernel B for the round loop, a uniform N = 2 / 4 class in
-    its embedded form (module docstring). CPU tensors run the plain round
-    loop (solve_batch_rounds) instead. Same arguments and return as
-    solve_batch_rounds; a class the kernels do not take raises
-    NotImplementedError."""
+    evaluation, kernel B for the round loop, the class in the layout of its
+    kernel class (module docstring). CPU tensors run the plain round loop
+    (solve_batch_rounds) instead. Same arguments and return as
+    solve_batch_rounds; a class the kernels do not take (S > 4, a segment
+    of more than 16 pieces) raises NotImplementedError."""
     if not batch.init_T.is_cuda:
         return solve_batch_rounds(batch, w, dims, cfg, max_iterations,
                                   flags, x0_override, return_x)
@@ -382,19 +379,18 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
     p = cfg.opt.lbfgs
     max_iter = p.max_iterations if max_iterations is None else max_iterations
     sw = StaticW.build(w, cfg)
+    _cuda.check_domain(dims, mem=p.mem_size, past=p.past)
     dims_k = embedded_class(dims)
     bk, x0p, sc, kc, _D = _prep(embed_scenario(batch, dims, dims_k), w,
                                 dims_k, torch.float32, sigma)
     if x0_override is not None:
-        x0p = x0_override.to(torch.float32).contiguous()
-        if dims_k is not dims:
-            x0p = _move_x(x0p, dims, dims_k)
+        x0p = _move_x(x0_override.to(torch.float32).contiguous(), dims,
+                      dims_k)
     f0, g0 = kcost.eval_fg(x0p, sc, kc, sw, dims_k, flags)
     solve_batch_fused.launches += 1
     x, f, info = _cuda.launch_solve_fused(x0p, f0, g0, sc, kc, sw, dims_k,
                                           sigma, p, max_iter, flags)
-    if dims_k is not dims:
-        x = _move_x(x, dims_k, dims)
+    x = _move_x(x, dims_k, dims)
     # the clamped boundary states; embedding leaves them as they are
     batch = batch._replace(ini_state=bk.ini_state, fin_state=bk.fin_state)
     res = _finalize(batch, x, f, info[0], info[1], w, dims, cfg, dims.dim,

@@ -70,10 +70,10 @@ def main(argv=None) -> int:
 
     builds = {}
     for d in args.csrc:
-        so, fn = cs._other_kernel_b(d)
+        so, build_s, fn = cs._other_kernel_b(d)
         builds[d] = fn
         keep = lambda k: "solve_kernel" in k or "eval_fg" in k
-        say({"build": d,
+        say({"build": d, "build_s": build_s,
              "machine_instructions": {k: v for k, v in
                                       (cs._sass_sizes(so) or {}).items()
                                       if keep(k)},

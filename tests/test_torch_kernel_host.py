@@ -28,225 +28,27 @@ rows split over the members, near (row, obstacle) pairs packed by the
 ballot into batches of 32, partials reduce-scattered. A fixture whose
 obstacles sit on the lanes' paths fills those batches.
 
-Skips where g++ is absent. The harness is a test tool only; the package
-never builds or loads it.
+The harness itself (its C source, build and calls) is
+tests/_kernel_harness.py. Skips where g++ is absent.
 """
 
-import ctypes
 import dataclasses
 import functools
-import hashlib
-import shutil
-import subprocess
 
+import _kernel_harness
 import numpy as np
 import pytest
 import torch
 
 from dftpav_tpu_torch import scenarios
 from dftpav_tpu_torch.config import EngineFlags, PlannerConfig
-from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
+from dftpav_tpu_torch.ops import kcost, pallas_solve
 from dftpav_tpu_torch.types import Dims, Scenario, from_numpy, \
     weights_from_config
 
 torch.set_num_threads(1)
 
 DIMS = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
-
-HARNESS = r"""
-#include <vector>
-#include "kcost.cuh"
-#include "solve.cuh"
-using namespace dftpav;
-constexpr int kN = 8, kC = kN + 5;
-
-// One lane's scratch, as a warp's slice of shared memory holds it on the
-// card, and the class constants: per segment its rows_s weighted rows of
-// the sample maps (also in double), quadrature rows and jerk form, as the
-// kernels stage them.
-template <class T, int G, int S>
-struct Lane {
-  typedef KDims<kN, S> Dm;
-  std::vector<double> Pd[kMaxS];
-  std::vector<T> Pc[kMaxS], gc[kMaxS];
-  std::vector<T> bnd, lm, obs;
-  std::vector<ObsLane<T>> ol;
-  std::vector<NearPair<T>> ring;
-  T x[Dm::DP], g[Dm::DP], qr[2 * kC], acc[kAcc * G], sb[12], gb[8];
-  double rhs[2 * kC];
-  T hs[kMem * Dm::DP], hy[kMem * Dm::DP], ys[kMem], alpha[kMem],
-      pf[kMaxPast];
-  LaneData<T> L;
-  SolverMem<T> M;
-  Lane(const T* P, const T* Q, const T* gridc, const KW<T>& w, int R, int H,
-       int O, int Po)
-      : bnd(12 * S), lm(2 * S), obs(12 * O * Po + 1), ol(O + 1),
-        ring(2 * G) {
-    for (int s = 0; s < kMaxS; ++s) {
-      const int q = s < S ? s : 0, rs = w.rs[q];
-      Pd[s].resize(3 * rs * kC);
-      Pc[s].resize(3 * rs * kC);
-      gc[s].resize(2 * rs);
-      for (int o = 0; o < 3; ++o)
-        for (int i = 0; i < rs * kC; ++i) {
-          const T v = P[((size_t)q * 3 + o) * R * kC + i];
-          Pc[s][o * rs * kC + i] = v;
-          Pd[s][o * rs * kC + i] = double(v);
-        }
-      for (int o = 0; o < 2; ++o)
-        for (int r = 0; r < rs; ++r)
-          gc[s][o * rs + r] = gridc[((size_t)q * 2 + o) * R + r];
-      L.Pds[s] = Pd[s].data(); L.Ps[s] = Pc[s].data();
-      L.gridcs[s] = gc[s].data(); L.Qs[s] = Q + (size_t)q * kC * kC;
-    }
-    L.H = H; L.O = O; L.Po = Po; L.seg_rows = R;
-    L.bnd_lane = bnd.data(); L.lm = lm.data(); L.obs = obs.data();
-    L.ol = ol.data(); L.x = x; L.g = g; L.rhs = rhs; L.qr = qr;
-    L.ring = ring.data(); L.acc = acc; L.sb = sb; L.gb = gb;
-    M.s = hs; M.y = hy; M.ys = ys; M.alpha = alpha; M.pf = pf;
-  }
-  void stage(const Slabs<T>& s, int lane) {
-    stage_lane<S>(HostTeam<G, Dm::DP>(), s, lane, bnd.data(), lm.data(),
-                  obs.data(), ol.data());
-  }
-};
-
-template <class T>
-static Slabs<T> slabs(const T* bnd, const T* misc, const T* cn, const T* cp,
-                      const T* cm, const T* obs, int B, int R, int H, int O,
-                      int Po, int S) {
-  Slabs<T> s;
-  s.bnd = bnd; s.misc = misc; s.cn = cn; s.cp = cp; s.cm = cm; s.obs = obs;
-  s.B = B; s.R = R; s.H = H; s.O = O; s.Po = Po; s.S = S;
-  return s;
-}
-
-// kernel A's mapping: half-planes read from the slabs
-template <class T, int G, int S>
-static void eval_all(const T* x, const T* bnd, const T* misc, const T* cn,
-                     const T* cp, const T* cm, const T* obs, const T* P,
-                     const T* Q, const T* gridc, const double* wts, int B,
-                     int R, int H, int O, int Po, T* f, T* g) {
-  typedef KDims<kN, S> Dm;
-  const KW<T> w = make_kw<T>(wts);
-  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
-  Lane<T, G, S> ln(P, Q, gridc, w, R, H, O, Po);
-  for (int lane = 0; lane < B; ++lane) {
-    ln.stage(s, lane);
-    ln.L.planes_lane = planes_slab(s, lane);
-    ln.L.plane_row = (size_t)B;
-    if (S == 1) select_segment<T, kN, S>(ln.L, w, 0);
-    for (int i = 0; i < Dm::DP; ++i) ln.x[i] = x[i * B + lane];
-    f[lane] = lane_eval<T, kN, S>(HostTeam<G, Dm::DP>(), ln.L, w);
-    for (int i = 0; i < Dm::DP; ++i) g[i * B + lane] = ln.g[i];
-  }
-}
-
-// kernel B's mapping: half-planes read from the lane-major copy
-template <class T, int G, int S>
-static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
-                      const T* misc, const T* cn, const T* cp, const T* cm,
-                      const T* obs, const T* P, const T* Q, const T* gridc,
-                      const double* wts, const double* lbp, int max_iter,
-                      int max_ls, int past, int adaptive, int B, int R, int H,
-                      int O, int Po, T* x_out, T* f_out, int* info) {
-  typedef KDims<kN, S> Dm;
-  const KW<T> w = make_kw<T>(wts);
-  const LP<T> p = make_lp<T>(lbp, max_iter, max_ls, past, adaptive);
-  const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
-  const int RS = S * R;
-  std::vector<T> copy((size_t)B * 5 * H * RS + 1);
-  for (int b = 0; b < B; ++b)
-    for (int q = 0; q < 5 * H; ++q)
-      for (int r = 0; r < RS; ++r)
-        copy[((size_t)b * 5 * H + q) * RS + r] =
-            lane_major_src(s, q)[(size_t)r * B + b];
-  Lane<T, G, S> ln(P, Q, gridc, w, R, H, O, Po);
-  for (int lane = 0; lane < B; ++lane) {
-    ln.stage(s, lane);
-    ln.L.planes_lane = planes_lane_major(copy.data(), lane, H, RS);
-    ln.L.plane_row = 1;
-    if (S == 1) select_segment<T, kN, S>(ln.L, w, 0);
-    T xl[Dm::DP], gl[Dm::DP], xo[Dm::DP];
-    for (int i = 0; i < Dm::DP; ++i) {
-      xl[i] = x0[i * B + lane];
-      gl[i] = g0[i * B + lane];
-    }
-    const SolveOut o = lane_solve<T, kN, S>(HostTeam<G, Dm::DP>(), ln.L, w,
-                                            p, ln.M, xl, f0[lane], gl, xo,
-                                            &f_out[lane]);
-    for (int i = 0; i < Dm::DP; ++i) x_out[i * B + lane] = xo[i];
-    info[lane] = o.status;
-    info[B + lane] = o.k;
-    info[2 * B + lane] = o.n_evals;
-  }
-}
-
-#define DEF(T, SUF, G, S)                                                  \
-  extern "C" void eval_##SUF##_g##G##_s##S(const T* x, const T* bnd,       \
-      const T* misc, const T* cn, const T* cp, const T* cm, const T* obs,  \
-      const T* P, const T* Q, const T* gridc, const double* wts, int B,    \
-      int R, int H, int O, int Po, T* f, T* g) {                            \
-    eval_all<T, G, S>(x, bnd, misc, cn, cp, cm, obs, P, Q, gridc, wts, B,  \
-                      R, H, O, Po, f, g);                                  \
-  }                                                                        \
-  extern "C" void solve_##SUF##_g##G##_s##S(const T* x0, const T* f0,     \
-      const T* g0, const T* bnd, const T* misc, const T* cn, const T* cp,  \
-      const T* cm, const T* obs, const T* P, const T* Q, const T* gridc,   \
-      const double* wts, const double* lbp, int max_iter, int max_ls,      \
-      int past, int adaptive, int B, int R, int H, int O, int Po,          \
-      T* x_out, T* f_out, int* info) {                                      \
-    solve_all<T, G, S>(x0, f0, g0, bnd, misc, cn, cp, cm, obs, P, Q,       \
-                       gridc, wts, lbp, max_iter, max_ls, past, adaptive,  \
-                       B, R, H, O, Po, x_out, f_out, info);                \
-  }
-DEF(double, f64, 1, 1)
-DEF(float, f32, 1, 1)
-DEF(double, f64, 32, 1)
-DEF(float, f32, 32, 1)
-DEF(double, f64, 1, 2)
-DEF(double, f64, 32, 2)
-DEF(float, f32, 32, 2)
-DEF(double, f64, 1, 3)
-DEF(double, f64, 32, 3)
-DEF(double, f64, 1, 4)
-DEF(double, f64, 32, 4)
-"""
-
-
-@functools.lru_cache(maxsize=None)
-def _harness():
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the host harness")
-    srcs = sorted(_cuda.CSRC.glob("*.cuh"))
-    h = hashlib.sha256(HARNESS.encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    so = _cuda.BUILD_DIR / f"libhost_harness_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = so.with_suffix(".cpp")
-        src.write_text(HARNESS)
-        tmp = so.with_suffix(".tmp")
-        subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                        "-I", str(_cuda.CSRC), "-o", str(tmp), str(src)],
-                       check=True, capture_output=True, text=True)
-        tmp.replace(so)
-    return ctypes.CDLL(str(so))
-
-
-_SUF = {torch.float64: "f64", torch.float32: "f32"}
-
-
-def _ptr(t):
-    assert t.is_contiguous()
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _doubles(vals):
-    return (ctypes.c_double * len(vals))(*vals)
-
 
 @functools.lru_cache(maxsize=None)
 def _setup(B=16, seed=3, sigma=1.0):
@@ -268,21 +70,18 @@ def _setup(B=16, seed=3, sigma=1.0):
     return cfg, sw, sc, kc, x0p, x, D
 
 
+# the harness's instantiations: (dtype, members per lane, capacity, S)
+INSTANCES = (("f64", 1, 8, 1), ("f32", 1, 8, 1), ("f64", 32, 8, 1),
+             ("f32", 32, 8, 1), ("f64", 1, 8, 2), ("f64", 32, 8, 2),
+             ("f32", 32, 8, 2), ("f64", 1, 8, 3), ("f64", 32, 8, 3),
+             ("f64", 1, 8, 4), ("f64", 32, 8, 4))
+
+
 def _host_eval(x, sc, kc, sw, sigma, dtype, G=1, dims=DIMS):
     """The objective with kernel A's team mapping, G members per lane
     (1: the Solo path; 32: the card's warp, its members run in turn)."""
-    lib = _harness()
-    fn = getattr(lib, f"eval_{_SUF[dtype]}_g{G}_s{dims.S}")
-    c = lambda t: t.to(dtype).contiguous()
-    xs, scs = c(x), [c(a) for a in sc]
-    P, Q, G = c(kc.P), c(kc.Q[:, :dims.N + 5]), c(kc.gridc)
-    B = x.shape[1]
-    f = torch.empty(B, dtype=dtype)
-    g = torch.empty_like(xs)
-    w = _doubles(_cuda.weight_vector(sw, sigma, dims))
-    fn(_ptr(xs), *(_ptr(a) for a in scs), _ptr(P), _ptr(Q), _ptr(G), w, B,
-       kcost.r_rows(dims), dims.H, dims.O, dims.Po, _ptr(f), _ptr(g))
-    return f, g
+    return _kernel_harness.host_eval(x, sc, kc, sw, sigma, dtype, G, dims,
+                                     INSTANCES)
 
 
 @pytest.mark.parametrize("vt", [1.0, "auto"])
@@ -313,22 +112,9 @@ def _host_solve(x0, f0, g0, sc, kc, sw, sigma, p, max_iter, flags, dtype,
                 G=1, dims=DIMS):
     """Kernel B's per-lane solve with G members per lane (as _host_eval),
     reading the half-planes from the lane-major copy kernel B makes."""
-    lib = _harness()
-    fn = getattr(lib, f"solve_{_SUF[dtype]}_g{G}_s{dims.S}")
-    c = lambda t: t.to(dtype).contiguous()
-    B = x0.shape[1]
-    xs, fs, gs = c(x0), c(f0), c(g0)
-    scs = [c(a) for a in sc]
-    P, Q, G = c(kc.P), c(kc.Q[:, :dims.N + 5]), c(kc.gridc)
-    x = torch.empty_like(xs)
-    f = torch.empty(B, dtype=dtype)
-    info = torch.empty((3, B), dtype=torch.int32)
-    fn(_ptr(xs), _ptr(fs), _ptr(gs), *(_ptr(a) for a in scs), _ptr(P),
-       _ptr(Q), _ptr(G), _doubles(_cuda.weight_vector(sw, sigma, dims)),
-       _doubles(_cuda.lbfgs_vector(p, flags)), max_iter, p.max_linesearch,
-       p.past, int(flags.adaptive_step), B, kcost.r_rows(dims), dims.H,
-       dims.O, dims.Po, _ptr(x), _ptr(f), _ptr(info))
-    return x, f, info
+    return _kernel_harness.host_solve(x0, f0, g0, sc, kc, sw, sigma, p,
+                                      max_iter, flags, dtype, G, dims,
+                                      INSTANCES)
 
 
 @pytest.mark.parametrize("tuned", [False, True])

@@ -317,24 +317,24 @@ def _embedded(name):
 
 
 def test_embedded_class_routing():
-    """Which classes the kernels take in their N = 8 form, and what still
-    raises NotImplementedError in the binding's checks (the plain round
-    loop takes every class)."""
+    """Which layout the kernels run each class in (capacity 8 or 16, the
+    segments' own piece counts), and what still raises
+    NotImplementedError in the binding's checks (the plain round loop
+    takes every class)."""
     import types as pytypes
 
     emb = pallas_solve.embedded_class
-    assert emb(Dims(**EMBED["S2-N2"])) == Dims(
+    assert emb(Dims(**EMBED["S2-N2"])) == kcost.KClass(
         **dict(EMBED["S2-N2"], N=8, Ns=(2, 2)))
     assert emb(Dims(**EMBED["S1-N4"])).Ns == (4,)
-    for keep in (Dims(S=1, N=8), Dims(S=2, N=8, Ns=(8, 2)), Dims(S=1, N=3),
-                 Dims(S=1, N=16), Dims(S=2, N=4, Ns=(4, 2))):
-        assert emb(keep) is keep
+    for keep, cap in ((Dims(S=1, N=8), 8), (Dims(S=2, N=8, Ns=(8, 2)), 8),
+                      (Dims(S=1, N=3), 8), (Dims(S=1, N=16), 16),
+                      (Dims(S=2, N=4, Ns=(4, 2)), 8)):
+        kd = emb(keep)
+        assert (kd.N, kd.Ns, kd.S) == (cap, keep.ns_tuple, keep.S)
     from dftpav_tpu_torch.ops import _cuda
-    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S,
-                                  dftpav_kernel_n=lambda: 8,
-                                  dftpav_kernel_dp=lambda S: 0)
-    for dims in (Dims(S=1, N=3), Dims(S=1, N=16), Dims(S=5, N=2),
-                 Dims(S=5, N=4)):
+    lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S)
+    for dims in (Dims(S=5, N=2), Dims(S=5, N=4), Dims(S=1, N=17)):
         with pytest.raises(NotImplementedError):
             _cuda._check_inputs(lib, None, None, None, emb(dims))
 
