@@ -24,23 +24,22 @@ non-zero and prints no final result):
      12-iteration paths (at least 80% equal); and kernel B's lanes that
      warps took after solving another lane equal to the same lanes solved
      alone, bitwise;
-     then a "kernel_times" line: each kernel alone beside its plain
-     version, with kernel B's lane evaluations, ms per 10^6 of them,
-     evaluations per lane p50 / p99 / max, and both kernels' registers,
-     spill bytes (ptxas) and resident warps per SM (the occupancy API);
-     the outputs timed are gated too: kernel A as at 8 obstacles, kernel B
-     against the plain round loop as above, its timed launches bitwise
-     equal, and where the batch has more lanes than the grid has warps,
-     the lanes taken second equal to the same lanes solved alone;
   4. the main path, solver.make_solver(engine="fused") on
      scenarios.batch_scenarios(B=8192, seed=7, float32, 2 obstacles),
      timed with CUDA events (one warm-up, best of 3), beside the plain
      round loop at B=1024; gate success >= 0.99 and every kernel
-     of the path launched; "kernel_times" again at this batch, gated as
-     in phase 3 (--quick: the main path at B=1024; the checks keep
-     B=1024); only with --parent (below), kernel B at this batch beside
-     another build's, on input variants, and its device time under
-     torch.profiler;
+     of the path launched; then a "kernel_times" line at this batch: each
+     kernel alone beside its plain version, with kernel B's lane
+     evaluations, ms per 10^6 of them, evaluations per lane p50 / p99 /
+     max, and both kernels' registers, spill bytes (ptxas) and resident
+     warps per SM (the occupancy API); the outputs timed are gated too:
+     kernel A as at 8 obstacles, kernel B against the plain round loop as
+     in phase 3, its timed launches bitwise equal, and where the batch has
+     more lanes than the grid has warps, the lanes taken second equal to
+     the same lanes solved alone (--quick: the main path at B=1024; the
+     checks keep B=1024); only with --parent (below), kernel B at this
+     batch beside another build's, on input variants, and its device time
+     under torch.profiler;
   5. kernels K2 / K3 (the corridor penalty's forward and backward) against
      their plain versions, float32, on the operands the bminor objective
      gives them: the bench fixture at B=1024 (x0 plus numpy noise) and a
@@ -56,7 +55,7 @@ non-zero and prints no final result):
      on the B=8192 operands;
   6. the second path, solver.make_solver(engine="bminor") with the
      default corridor backend ("auto", which must reach K2/K3 on its own)
-     on the first 2048 lanes of the fixture, 150 iterations (a
+     on the first 2048 lanes of the fixture, REF_ITERS = 100 iterations (a
      5-iteration warm-up at B=256, then one run timed with CUDA events),
      beside the same call
      with "xla" (no kernel on that path) on the first 1024 lanes; gates
@@ -79,9 +78,10 @@ non-zero and prints no final result):
      float64 (plain float32 loses whole digits at the lots' ~50 m
      coordinates): kernel A per lane |df|/|f| <= 1e-4 and max|dg| <= 1e-3
      * max(1, max|g|); kernel B against the plain round loop (run from x0
-     and from three copies of x0 perturbed by 1e-7, batched, in 7
-     processes at once after the timed runs): success within 0.02 and
-     cost p50 within 2%
+     and from three copies of x0 perturbed by 1e-7, batched, in phase
+     14's pool of child processes beside phases 14's and 15's loops, its
+     gates after it; both at REF_ITERS = 100 iterations, the path's own
+     runs at 150): success within 0.02 and cost p50 within 2%
      beyond the float64 loop's own largest move under those perturbations
      (the lanes' outcomes are chaotic: a few plans changing minimum move a
      median of 40-128 plans by percents), 12-iteration paths equal on
@@ -134,7 +134,8 @@ non-zero and prints no final result):
  10. the vmap engine (make_solver(engine="vmap"): cost.total_cost by
      autograd, lbfgs.minimize; plain PyTorch, no kernel) on CUDA tensors,
      the first 256 lanes of the bench fixture and three copies of them
-     whose initial guess moves by 1e-7, in one call, 150 iterations:
+     whose initial guess moves by 1e-7, in one call, 100 iterations (phase
+     6's depth):
      success >= 0.99 and cost p50 within 2% of the bminor engine's on the
      same lanes (phase 6's run; the same objective and L-BFGS, batched)
      beyond the vmap engine's own move on the copies, kernel B's
@@ -208,16 +209,45 @@ non-zero and prints no final result):
      float64); kernel B against the plain round
      loop in float64 as phase 7 holds it (12-iteration paths equal on >=
      50% of the lanes; success and cost p50 within 0.02 / 2% beyond the
-     loop's own spread under 1e-7 perturbations of x0, run in child
-     processes after the timed runs), finite coefficients of the native
+     loop's own spread under 1e-7 perturbations of x0, both at REF_ITERS
+     = 100 iterations, run in child processes after the timed runs),
+     finite coefficients of the native
      shape; then the bench class on the main path's batch (B=8192) at
      m = 16, 64 and 256 (above 16 pairs the history lies in a per-lane
      global scratch): success >= 0.99, cost p50, iterations p50 / p90 /
      p99, kernel B ms, its launches bitwise equal, m = 16 bitwise equal to
      phase 4's result, and at m = 64 and 256 the first 1024 lanes against
-     the float64 plain loop at that m (success >= 0.99, cost p50 within
-     2%, 12-iteration paths equal on >= 50%). Kernels A and B's launches
-     are counted over the path's solve_batch_fused calls.
+     the float64 plain loop at that m, 100 iterations each (success >=
+     0.99, cost p50 within 2%, 12-iteration paths equal on >= 50%).
+     Kernels A and B's launches are counted over the path's
+     solve_batch_fused calls.
+ 15. the many-gear classes (kernels A and B at S = 5 to 8): Dims(S=5,
+     N=8, O=2) (capacity 8, every segment of 8 pieces, two movers),
+     Dims(S=6, N=8, Ns=(8, 4, 2, 2, 4, 8)) (per-segment counts),
+     Dims(S=8, N=4) (the largest S) and Dims(S=5, N=16, Ns=(16, 8, 4, 2,
+     2)) (capacity 16, constants in global memory), K=16, Kdes=32, H=4,
+     O=0 where not stated, on jittered multi_gear_scenario lanes at
+     B=1024; and the front end's own lanes in an S = 6 class of 2 pieces
+     per segment (frontend_batch on 20 x 30 m lots with two movers, 256
+     plans of 1 to 6 segments, the rest of each lane padded with seg_mask
+     False; planned in a child process from the start; the pool's
+     histogram of gear-segment counts printed). Each class through
+     pallas_solve.solve_batch_fused (one warm-up, best of 3), kernels A
+     and B alone (CUDA events) with their kernel_info; the front end's
+     class also through solve_with_retry (10 time scales, timed once).
+     Gates as phase 14's: kernel A at x0 against the plain objective
+     (float64 where float32 cannot resolve a lane), kernel B on the first
+     256 lanes against the float64 plain round loop at 100 iterations
+     each (x0 and three copies perturbed by 1e-7, in phase 14's pool of
+     child processes): success
+     within 0.02 and cost p50 within 2% beyond the loop's own spread,
+     12-iteration paths equal on >= 50% of the lanes; both kernels
+     launched on every call; finite coefficients from ini_state[0] to the
+     last real segment's fin_state within 1e-3 m; the ladder's success
+     at least the direct solve's. Then every instantiation's ptxas
+     registers and spill bytes and machine instructions and, with
+     --parent, the other build's beside them (the S <= 4
+     instantiations', whose code this build keeps).
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -238,7 +268,8 @@ lanes, so lanes that share a warp or a block take the same path), and on
 phase 7's S = 4 classes and a two-gear class at B=256, with whether the
 two builds' outputs are bitwise equal and that build's build seconds,
 ptxas registers, spills and machine instructions; then traces one launch
-of kernels A and B with torch.profiler.
+of kernels A and B with torch.profiler; phase 15 then prints that
+build's registers and spills beside this one's.
 """
 
 from __future__ import annotations
@@ -254,6 +285,15 @@ import time
 import numpy as np
 import torch
 
+
+# the depth of the runs whose time is the host's: the eager engines of
+# phases 6 and 10 (bminor, one host sync per line-search step, ~50 ms per
+# batched evaluation; vmap), and the float64 plain round loops that hold
+# kernel B in phases 7, 14 and 15 (kernel B launched at the same depth for
+# that comparison; the paths and their times keep the solver's 150). Two
+# thirds of 150: the run's time pays for phase 15, and each gate compares
+# its two sides at one depth
+REF_ITERS = 100
 
 _PHASES = []
 _T0 = time.perf_counter()
@@ -1062,9 +1102,9 @@ def _vmap_phase(cfg, w, batch, res_bm, kernel_solve, B_v=256, B_64=4,
                 iters=150):
     """Phase 10 (module docstring): the vmap engine on CUDA tensors beside
     the bminor engine (res_bm, phase 6's result on lanes that begin with
-    the same ones) and kernel B (kernel_solve, make_solver's fused engine)
-    on the same lanes, and a float64 12-iteration path on the card against
-    the CPU."""
+    the same ones, at phase 6's depth `iters`) and kernel B (kernel_solve,
+    make_solver's fused engine) on the same lanes, and a float64
+    12-iteration path on the card against the CPU."""
     from dftpav_tpu_torch import solver
     from dftpav_tpu_torch.ops import pallas_solve
     from dftpav_tpu_torch.types import Dims, Scenario, weights_from_config
@@ -1798,10 +1838,12 @@ def _two_loop_flops(k, m, DP):
 
 
 def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
-                        a_gate):
+                        a_gate, more=None):
     """Phase 14 (module docstring): emits a line per class and per L-BFGS
     memory, raises on a failed gate. Returns the path's launches [kernel A,
-    kernel B] and the kernels line's per-class rows (A, B)."""
+    kernel B], the kernels line's per-class rows (A, B), and the results of
+    `more`, further _plain_worker jobs {key: arguments} run in the same
+    pool as this phase's."""
     from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
     from dftpav_tpu_torch.types import Dims, Scenario, from_numpy
 
@@ -1870,6 +1912,8 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
         xb, fb, infob = keep["b"]
         info12 = _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
                                           "auto", p, 12, tuned)[2]
+        _x, f_ref, info_ref = _cuda.launch_solve_fused(
+            x0e, fA, gA, sce, kce, sw, dims_e, "auto", p, REF_ITERS, tuned)
         rows = int((kce.gridc[:, 0] > 0).sum())   # all segments' rows
         ins = _nbytes(x0e, *sce, kce.P, kce.Q[:, :dims_e.N + 5], kce.gridc)
         t["bound_ms_a"], t["bound_by_a"] = _bound(
@@ -1893,8 +1937,8 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
                     == (CD_B, dims_n.S, dims_n.N, 6, 2)
                     and bool(torch.isfinite(r.coeffs).all()))
         cls[name] = (dims_n, npb, t, ok_a and shape_ok and min(l_path) > 0,
-                     {"status": infob[0].cpu().numpy(),
-                      "fp": fb.cpu().numpy(), "k12": info12.cpu().numpy(),
+                     {"status": info_ref[0].cpu().numpy(),
+                      "fp": f_ref.cpu().numpy(), "k12": info12.cpu().numpy(),
                       "success_path": r.success.float().mean().item(),
                       "launches": l_path, "embedded_as": [dims_e.N,
                                                           list(dims_e.Ns)]})
@@ -1931,6 +1975,7 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
             + _two_loop_flops(infob[1], m, x0b.shape[0]),
             evals * rows * FLOP64_ROW_A)
         t = {"m": m, "B": x0b.shape[1], "ms_path": ms_path, "ms_b": ms_b,
+             "iters_vs_plain": REF_ITERS,
              "success": r.success.float().mean().item(),
              "cost_p50": float(np.median(r.cost.double().cpu().numpy())),
              "iters_p50_p90_p99": [_pct(r.n_iters.float(), q)
@@ -1949,21 +1994,29 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
         t["k12"] = _cuda.launch_solve_fused(
             cut(x0b), cut(f0b), cut(g0b), kcost.KScenario(*map(cut, scb)),
             kcb, sw, dims_b, "auto", p_m, 12, tuned)[2].cpu().numpy()
-        t["chk"] = {"status": infob[0][:n_chk].cpu().numpy(),
-                    "fp": fb[:n_chk].cpu().numpy()}
+        _x, f_ref, info_ref = _cuda.launch_solve_fused(
+            cut(x0b), cut(f0b), cut(g0b), kcost.KScenario(*map(cut, scb)),
+            kcb, sw, dims_b, "auto", p_m, REF_ITERS, tuned)
+        t["chk"] = {"status": info_ref[0].cpu().numpy(),
+                    "fp": f_ref.cpu().numpy()}
         mems[m] = t
 
     # 14c. the plain round loop in float64 in child processes (the card is
-    # otherwise idle now): each class from x0 and MG_PERTURB perturbed
-    # copies, the bench class's first n_chk lanes at m = 64 and 256
-    workers = ctx.Pool(processes=len(cls) + 2)
+    # otherwise idle now): `more` first (phases 7's and 15's classes, the
+    # longest loops), each class from x0 and MG_PERTURB perturbed copies,
+    # the bench class's first n_chk lanes at m = 64 and 256; a process per
+    # core
+    more = more or {}
+    workers = ctx.Pool(processes=min(8, len(cls) + 2 + len(more)))
     try:
-        jobs = {name: workers.apply_async(
-            _plain_worker, (v[0], v[1], (None, *MG_PERTURB), iters))
-            for name, v in cls.items()}
+        jobs = {k: workers.apply_async(_plain_worker, args)
+                for k, args in more.items()}
+        jobs.update({name: workers.apply_async(
+            _plain_worker, (v[0], v[1], (None, *MG_PERTURB), REF_ITERS))
+            for name, v in cls.items()})
         for m in CD_MEMS[1:]:
             jobs[m] = workers.apply_async(
-                _plain_worker, (dims_b, npb_chk, (None,), iters, "float64",
+                _plain_worker, (dims_b, npb_chk, (None,), REF_ITERS, "float64",
                                 m))
         plain = {k: job.get(timeout=900) for k, job in jobs.items()}
     finally:
@@ -1974,10 +2027,10 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
     for name, (dims_n, _npb, t, ok_k, o) in cls.items():
         p64 = plain[name]
         s_k, c_k = np_success_cost(o["status"], o["fp"])
-        s_64, c_64 = np_success_cost(p64[None][iters]["status"],
-                                     p64[None][iters]["fp"])
-        pert = [np_success_cost(p64[sd][iters]["status"],
-                                p64[sd][iters]["fp"]) for sd in MG_PERTURB]
+        s_64, c_64 = np_success_cost(p64[None][REF_ITERS]["status"],
+                                     p64[None][REF_ITERS]["fp"])
+        pert = [np_success_cost(p64[sd][REF_ITERS]["status"],
+                                p64[sd][REF_ITERS]["fp"]) for sd in MG_PERTURB]
         spread_s = max(abs(v[0] - s_64) for v in pert)
         spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
         ref12 = np.stack([p64[None][12][k] for k in ("status", "k",
@@ -1988,18 +2041,20 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
                  success_cost_p50_plain_f64_perturbed=pert,
                  spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
                  share_12iter_vs_f64=share,
-                 plain_ms_b_f64=p64[None][iters]["seconds"] * 1e3,
-                 plain_lanes_b_f64=p64[None][iters]["lanes"])
+                 plain_ms_b_f64=p64[None][REF_ITERS]["seconds"] * 1e3,
+                 plain_lanes_b_f64=p64[None][REF_ITERS]["lanes"])
         ok = (ok_k and share >= MG_SHARE12
               and abs(s_k - s_64) <= 0.02 + spread_s
               and abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64))
         _emit("class_domain", cls=name, dims=dataclasses.asdict(dims_n),
               embedded_as=o["embedded_as"], B=CD_B, iters=iters,
+              iters_vs_plain=REF_ITERS,
               success_path=o["success_path"], launches=o["launches"], **t,
               tol="A vs plain float32: |df|/|f|<=1e-4 and max|dg|<=1e-3*"
                   "max(1,max|g|), or where float32 cannot hold a lane, vs "
                   "float64 within max(tol, 4x plain float32's own error); "
-                  "B vs the plain round loop in float64: "
+                  "B vs the plain round loop in float64, iters_vs_plain "
+                  "iterations each: "
                   "|dsuccess|<=0.02+spread, |dcost p50|<=(2%+spread) "
                   "(spread: its own largest move with x0 perturbed by 1e-7, "
                   "3 seeds), 12-iteration paths equal on >=50% of the "
@@ -2027,22 +2082,23 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
         if m in plain:
             p64 = plain[m][None]
             s_k, c_k = np_success_cost(chk["status"], chk["fp"])
-            s_64, c_64 = np_success_cost(p64[iters]["status"],
-                                         p64[iters]["fp"])
+            s_64, c_64 = np_success_cost(p64[REF_ITERS]["status"],
+                                         p64[REF_ITERS]["fp"])
             ref12 = np.stack([p64[12][k] for k in ("status", "k",
                                                     "n_evals")])
             share = float((k12 == ref12).all(axis=0).mean())
             t.update(B_plain=n_chk, success_kernel_b_chk=s_k,
                      cost_p50_kernel_b_chk=c_k, success_plain_f64=s_64,
                      cost_p50_plain_f64=c_64, share_12iter_vs_f64=share,
-                     plain_ms_b_f64=p64[iters]["seconds"] * 1e3)
+                     plain_ms_b_f64=p64[REF_ITERS]["seconds"] * 1e3)
             ok = (ok and share >= MG_SHARE12 and s_k >= 0.99
                   and abs(c_k - c_64) <= 0.02 * abs(c_64))
         _emit("class_domain_memory", cls="bench", **t,
               tol="success>=0.99; kernel B's launches bitwise equal; m = 16 "
                   "bitwise the main path's result; m > 16 on the first "
                   "1024 lanes vs the plain round loop in float64 at that "
-                  "m: success>=0.99, cost p50 within 2%, 12-iteration "
+                  "m, iters_vs_plain iterations each: success>=0.99, cost "
+                  "p50 within 2%, 12-iteration "
                   "paths equal on >=50% of the lanes; both kernels launched",
               ok=bool(ok))
         if m != CD_MEMS[0]:
@@ -2059,6 +2115,325 @@ def _class_domain_phase(cfg, w, sw, tuned, iters, ctx, big, res_main,
           ok=not failed and min(launches) > 0)
     if failed or min(launches) == 0:
         raise AssertionError(f"class domain: {failed} failed their gates")
+    return launches, rows_a, rows_b, {k: plain[k] for k in more}
+
+
+# ---- 15. the many-gear classes: kernels A and B at S = 5 to 8 (the front
+# end's many-point turns), at capacities 8 and 16, on jittered
+# multi_gear_scenario lanes (every segment real) and on the front end's own
+# lanes in an S = 6 class (padded segments)
+MG8_B = 1024
+MG8_CLASSES = {
+    "S5-N8": dict(S=5, N=8, K=16, Kdes=32, H=4, O=2, Po=8),
+    "S6-N8-842248": dict(S=6, N=8, K=16, Kdes=32, H=4, O=0, Po=8,
+                         Ns=(8, 4, 2, 2, 4, 8)),
+    "S8-N4": dict(S=8, N=4, K=16, Kdes=32, H=4, O=0, Po=8),
+    "S5-N16-168422": dict(S=5, N=16, K=16, Kdes=32, H=4, O=0, Po=8,
+                          Ns=(16, 8, 4, 2, 2))}
+# the front end's lanes: every plan of up to six gear segments on 20 x 30 m
+# lots with two movers (scenarios.frontend_batch), planned in a child
+# process beside phases 1-6 at phase 7's search budget, in a class of 2
+# pieces per segment (the kernels' capacity 8, Ns = (2,) * 6). At 8 pieces
+# these plans' sub-second segments (0.07-0.35 s) get pieces of 9-44 ms,
+# where the jerk form's rounding error exceeds its value even in float64:
+# the float64 round loop ended 19 of the first 64 lanes at negative costs,
+# so no solver can be held to it there (tests/frontend_conditioning.py)
+MG8_FE = dict(S=6, N=2, K=16, Kdes=32, H=4, O=2, Po=8)
+MG8_FE_B, MG8_FE_SEED, MG8_FE_LOT = 256, MG_SEED, (20.0, 30.0)
+# lanes of each class held to the float64 plain loop (from x0 and the
+# MG_PERTURB copies), the first of the batch
+MG8_REF = 256
+
+
+def _fe_pool_worker(conn, kw, B, seed, lot, search_s):
+    """Child process: frontend_batch of class Dims(**kw) (numpy float32,
+    kw["O"] movers), sent back as (seconds, Scenario) or the error."""
+    try:
+        from dftpav_tpu_torch import scenarios
+        from dftpav_tpu_torch.types import Dims
+
+        t0 = time.perf_counter()
+        npb = scenarios.frontend_batch(Dims(**kw), B, seed=seed,
+                                       dtype=np.float32, n_obstacles=kw["O"],
+                                       lot=lot, max_search_time=search_s)
+        conn.send((time.perf_counter() - t0, npb))
+    except BaseException as exc:         # reported by the parent
+        conn.send(exc)
+    finally:
+        conn.close()
+
+
+def _mg8_fixture(dims, B):
+    """numpy Scenario of B jittered multi_gear_scenario lanes (seed 13) of
+    class dims, with batch_scenarios' dims.O movers (seed 7) where O > 0."""
+    from dftpav_tpu_torch import scenarios
+
+    npb = _jittered(scenarios.multi_gear_scenario, dims, B, 13)
+    if dims.O:
+        obs = scenarios.batch_scenarios(
+            dataclasses.replace(dims, S=1, N=8, Ns=None), B, seed=7,
+            dtype=np.float32, n_obstacles=dims.O)
+        npb = npb._replace(obs_coef=obs.obs_coef, obs_dt=obs.obs_dt,
+                           obs_rel_t0=obs.obs_rel_t0, obs_mask=obs.obs_mask)
+    return npb
+
+
+def _kernel_key(name):
+    """'eval_fg_kernel<N,S>', 'solve_kernel<N,S,KM>' or 'consts_kernel<N,S>'
+    of a mangled kernel name (its namespace and parameter types left out:
+    they differ between builds); None for the other kernels."""
+    import re
+
+    m = re.search(r"(eval_fg_kernel|solve_kernel|consts_kernel)"
+                  r"I((?:Li-?\d+E)+)E", name)
+    if not m:
+        return None
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(-?\d+)E', m.group(2)))}>"
+
+
+def _manygear_card(cfg, w, sw, tuned, iters, a_gate, fe_rx):
+    """Phase 15's work on the card (module docstring): each class through
+    solve_batch_fused, kernels A and B alone, kernel A's gate, the output
+    gate; the front end's class also through the retry ladder. Emits the
+    front-end pool's line. Returns {class: numbers} and the plain loop's
+    jobs {("mg8", class): _plain_worker arguments}."""
+    from dftpav_tpu_torch import solver
+    from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
+    from dftpav_tpu_torch.types import Dims, Scenario, from_numpy
+
+    dev = torch.device("cuda")
+    p = cfg.opt.lbfgs
+    got = fe_rx.recv()
+    if isinstance(got, BaseException):
+        raise got
+    fe_s, fe_np = got
+    nseg = fe_np.seg_mask.sum(axis=1)
+    hist = {int(k): int(v) for k, v in enumerate(np.bincount(
+        nseg, minlength=MG8_FE["S"] + 1))}
+    _emit("manygear_frontend_pool", dims=MG8_FE, B=MG8_FE_B,
+          seed=MG8_FE_SEED, lot=MG8_FE_LOT, search_s=MG_SEARCH_S,
+          seconds=fe_s, gear_segments_histogram=hist,
+          ok=bool(nseg.min() >= 1 and nseg.max() <= MG8_FE["S"]))
+    fixtures = {name: (Dims(**kw), _mg8_fixture(Dims(**kw), MG8_B))
+                for name, kw in MG8_CLASSES.items()}
+    fixtures["frontend-S6"] = (Dims(**MG8_FE), fe_np)
+
+    out, jobs = {}, {}
+    for name, (dims_n, npb) in fixtures.items():
+        bn = from_numpy(npb, Scenario, device=dev, dtype=torch.float32)
+        B = bn.init_T.shape[0]
+        keep = {}
+        kcost.eval_fg.launches = 0
+        pallas_solve.solve_batch_fused.launches = 0
+        ms_path = _cuda_ms(lambda: keep.__setitem__(
+            "r", pallas_solve.solve_batch_fused(bn, w, dims_n, cfg, iters,
+                                                flags=tuned)), reps=3)
+        torch.cuda.synchronize()
+        l_path = [kcost.eval_fg.launches,
+                  pallas_solve.solve_batch_fused.launches]
+        dims_e = pallas_solve.embedded_class(dims_n)
+        _b, x0e, sce, kce, _D = pallas_solve._prep(
+            pallas_solve.embed_scenario(bn, dims_n, dims_e), w, dims_e,
+            torch.float32, "auto")
+        fA, gA = _cuda.launch_eval_fg(x0e, sce, kce, sw, dims_e, "auto")
+        plain = {}
+        errs, _ok = a_gate(fA, gA, x0e, sce, kce, dims_e,
+                           kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e,
+                                               tuned))
+        # phase 14's gate: float64 where plain float32 cannot resolve a lane
+        ok_a = ((errs["rel_f_max_a"] <= 1e-4
+                 or errs["rel_f_max_a_vs_f64"]
+                 <= max(1e-4, 4.0 * errs["plain_f32_rel_f_max_vs_f64"]))
+                and (errs["rel_g_max_a"] <= 1e-3
+                     or errs["rel_g_max_a_vs_f64"]
+                     <= max(1e-3, 4.0 * errs["plain_f32_rel_g_max_vs_f64"])))
+        t = {"B": B, "ms_path": ms_path,
+             "ms_a": _cuda_ms(lambda: _cuda.launch_eval_fg(
+                 x0e, sce, kce, sw, dims_e, "auto"), reps=20),
+             "plain_ms_a": _cuda_ms(lambda: plain.__setitem__(
+                 "a", kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e, tuned)),
+                 reps=3)}
+        t["ms_b"] = _cuda_ms(lambda: keep.__setitem__(
+            "b", _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
+                                          "auto", p, iters, tuned)), reps=3)
+        xb, fb, infob = keep["b"]
+        info12 = _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
+                                          "auto", p, 12, tuned)[2]
+        _x, f_ref, info_ref = _cuda.launch_solve_fused(
+            x0e, fA, gA, sce, kce, sw, dims_e, "auto", p, REF_ITERS, tuned)
+        # the work this run's lanes need: each lane's real segments' rows
+        S = dims_e.S
+        real = (sce.misc[S:2 * S] > 0.5).double()            # [S, B]
+        rows_s = (kce.gridc[:, 0, :, 0] > 0).sum(dim=1).double()
+        rows_l = (real * rows_s[:, None]).sum(dim=0)           # [B]
+        work_l = rows_l * FLOP_ROW_A + real.sum(dim=0) * FLOP_LANE_A
+        ins = _nbytes(x0e, *sce, kce.P, kce.Q[:, :dims_e.N + 5], kce.gridc)
+        t["bound_ms_a"], t["bound_by_a"] = _bound(
+            ins + _nbytes(fA, gA), float(work_l.sum()),
+            float(rows_l.sum()) * FLOP64_ROW_A)
+        ev = infob[2].double() - 1.0
+        t["bound_ms_b"], t["bound_by_b"] = _bound(
+            ins + _nbytes(fA, gA, xb, fb, infob),
+            float((ev * work_l).sum())
+            + _two_loop_flops(infob[1], p.mem_size, x0e.shape[0]),
+            float((ev * rows_l).sum()) * FLOP64_ROW_A)
+        # the output: finite coefficients from ini_state[0] to the last
+        # real segment's fin_state
+        r = keep["r"]
+        c = r.coeffs
+        last = torch.as_tensor(nseg if name == "frontend-S6" else
+                               np.full(B, dims_n.S), device=dev).long() - 1
+        lanes = torch.arange(B, device=dev)
+        head_err = (c[:, 0, 0, 0] - bn.ini_state[:, 0, :, 0]).abs().max()
+        tail_err = (c[lanes, last, -1].sum(dim=1)
+                    - bn.fin_state[lanes, last, :, 0]).abs().max()
+        ok_out = (tuple(c.shape) == (B, dims_n.S, dims_n.N, 6, 2)
+                  and bool(torch.isfinite(c).all())
+                  and max(head_err.item(), tail_err.item()) <= 1e-3)
+        t.update(errs, lane_evals_b=int(ev.sum()),
+                 evals_per_lane_b_p50_p99_max=[_pct(ev, 50), _pct(ev, 99),
+                                               float(ev.max())],
+                 max_abs_err_a=max((fA - plain["a"][0]).abs().max().item(),
+                                   (gA - plain["a"][1]).abs().max().item()),
+                 kernel_info={k: _cuda.kernel_info(dims_e, k) for k in "AB"},
+                 success_path=r.success.float().mean().item(),
+                 cost_p50_path=float(np.median(r.cost.double().cpu())),
+                 iters_p50_p90_p99=[_pct(r.n_iters.float(), q)
+                                    for q in (50, 90, 99)],
+                 boundary_err_m=[head_err.item(), tail_err.item()],
+                 launches=l_path, embedded_as=[dims_e.N, list(dims_e.Ns)])
+        # both kernels on every call (one warm-up and three timed)
+        ok = ok_a and ok_out and l_path == [4, 4]
+        if name == "frontend-S6":
+            solve_m = solver.make_solver(cfg, dims_n, max_iterations=iters,
+                                         engine="fused", flags=tuned)
+            kcost.eval_fg.launches = 0
+            pallas_solve.solve_batch_fused.launches = 0
+            ms_l = _cuda_ms(lambda: keep.__setitem__(
+                "l", solver.solve_with_retry(solve_m, bn, w,
+                                             time_scales=MG_SCALES,
+                                             pad_to=MG_B)), reps=1, warmup=0)
+            torch.cuda.synchronize()
+            rl = keep["l"]
+            t["ladder"] = {
+                "ms": ms_l, "rate": B / (ms_l / 1e3),
+                "succ": rl.success.float().mean().item(),
+                "succ_direct": t["success_path"],
+                "cost_p50": float(np.nanmedian(rl.cost.double().cpu())),
+                "launches": [kcost.eval_fg.launches,
+                             pallas_solve.solve_batch_fused.launches]}
+            # the ladder keeps every lane that solved and re-solves the rest
+            ok = (ok and min(t["ladder"]["launches"]) > 0
+                  and t["ladder"]["succ"] >= t["success_path"]
+                  and bool(torch.isfinite(rl.coeffs).all()))
+        n = min(MG8_REF, B)
+        out[name] = dict(dims=dims_n, t=t, ok=ok,
+                         status=info_ref[0][:n].cpu().numpy(),
+                         fp=f_ref[:n].cpu().numpy(),
+                         k12=info12[:, :n].cpu().numpy())
+        jobs[("mg8", name)] = (dims_n, type(npb)(*(a[:n] for a in npb)),
+                               (None, *MG_PERTURB), REF_ITERS)
+    return out, jobs
+
+
+def _manygear_gates(cfg, mg8, plain, parent_log, sass_all):
+    """Phase 15's gates, with the float64 plain loop's results `plain`
+    (_plain_worker's per job, REF_ITERS iterations) and the library's
+    machine instructions per kernel `sass_all` (phase 1's): emits a line
+    per class and the instantiations' code, raises on a failed gate.
+    Returns the path's launches [A, B] and the kernels line's per-class
+    rows (A, B)."""
+    iters = REF_ITERS
+    def np_success_cost(st, fp):
+        cost = fp.astype(np.float64) / cfg.opt.cost_scale
+        return (float(((st >= 0) & (cost < cfg.opt.reject_cost)).mean()),
+                float(np.median(cost)))
+
+    launches, rows_a, rows_b, failed = [0, 0], [], [], []
+    for name, o in mg8.items():
+        t, p64 = o["t"], plain[("mg8", name)]
+        s_k, c_k = np_success_cost(o["status"], o["fp"])
+        s_64, c_64 = np_success_cost(p64[None][iters]["status"],
+                                     p64[None][iters]["fp"])
+        pert = [np_success_cost(p64[sd][iters]["status"],
+                                p64[sd][iters]["fp"]) for sd in MG_PERTURB]
+        spread_s = max(abs(v[0] - s_64) for v in pert)
+        spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
+        ref12 = np.stack([p64[None][12][k] for k in ("status", "k",
+                                                      "n_evals")])
+        share = float((o["k12"] == ref12).all(axis=0).mean())
+        t.update(B_plain=int(o["status"].shape[0]), success_kernel_b=s_k,
+                 cost_p50_kernel_b=c_k, success_plain_f64=s_64,
+                 cost_p50_plain_f64=c_64,
+                 success_cost_p50_plain_f64_perturbed=pert,
+                 spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
+                 share_12iter_vs_f64=share,
+                 plain_ms_b_f64=p64[None][iters]["seconds"] * 1e3,
+                 plain_lanes_b_f64=p64[None][iters]["lanes"])
+        ok = (o["ok"] and share >= MG_SHARE12
+              and abs(s_k - s_64) <= 0.02 + spread_s
+              and abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64))
+        launches[0] += t["launches"][0] + t.get("ladder", {}).get(
+            "launches", [0, 0])[0]
+        launches[1] += t["launches"][1] + t.get("ladder", {}).get(
+            "launches", [0, 0])[1]
+        _emit("manygear", cls=name, dims=dataclasses.asdict(o["dims"]),
+              iters_vs_plain=iters, **t,
+              tol="A vs plain float32: |df|/|f|<=1e-4 and max|dg|<=1e-3*"
+                  "max(1,max|g|), or where float32 cannot hold a lane, vs "
+                  "float64 within max(tol, 4x plain float32's own error); "
+                  "B on the first B_plain lanes vs the plain round loop in "
+                  "float64, iters_vs_plain iterations each: |dsuccess|<="
+                  "0.02+spread, |dcost p50|<=(2%+"
+                  "spread) (spread: its own largest move with x0 perturbed "
+                  "by 1e-7, 3 seeds), 12-iteration paths equal on >=50% of "
+                  "the lanes; both kernels launched on every call; finite "
+                  "coefficients from ini_state[0] to the last real "
+                  "segment's fin_state within 1e-3 m; the ladder's success "
+                  ">= the direct solve's", ok=bool(ok))
+        rows_a.append({"class": name, "m": cfg.opt.lbfgs.mem_size,
+                       "ms": t["ms_a"], "plain_ms": t["plain_ms_a"],
+                       "bound_ms": t["bound_ms_a"],
+                       "bound_by": t["bound_by_a"],
+                       "max_abs_err": t["max_abs_err_a"],
+                       "err_of": "f and g vs plain float32 at the class's "
+                                 "x0", "launches": t["launches"][0]})
+        rows_b.append({"class": name, "m": cfg.opt.lbfgs.mem_size,
+                       "ms": t["ms_b"],
+                       "plain_ms_f64": t["plain_ms_b_f64"],
+                       "plain_lanes": t["plain_lanes_b_f64"],
+                       "bound_ms": t["bound_ms_b"],
+                       "bound_by": t["bound_by_b"],
+                       "launches": t["launches"][1]})
+        if not ok:
+            failed.append(name)
+    # the code of every instantiation, and with --parent the other build's
+    # beside this one's (the S <= 4 instantiations should be the same)
+    from dftpav_tpu_torch.ops import _cuda
+
+    so = _cuda.library_path()
+    regs = {_kernel_key(k): v for k, v in
+            _ptxas(so.with_suffix(".log").read_text()).items()
+            if _kernel_key(k)}
+    sass = {_kernel_key(k): v for k, v in (sass_all or {}).items()
+            if _kernel_key(k)}
+    line = {"ptxas_registers_spill_store_bytes": regs,
+            "machine_instructions": sass}
+    if parent_log is not None:
+        old = {_kernel_key(k): v for k, v in _ptxas(parent_log).items()
+               if _kernel_key(k)}
+        line["this_and_parent_ptxas"] = {k: (regs.get(k), v)
+                                         for k, v in old.items()}
+        line["parent_registers_spills_equal"] = all(
+            regs.get(k) is not None and tuple(regs[k]) == tuple(v)
+            for k, v in old.items())
+    _emit("manygear_compiler", **line)
+    _emit("manygear_path", launches={"eval_fg": launches[0],
+                                     "solve_fused": launches[1]},
+          ok=not failed and min(launches) > 0)
+    if failed or min(launches) == 0:
+        raise AssertionError(f"many-gear classes: {failed} failed their "
+                             f"gates")
     return launches, rows_a, rows_b
 
 
@@ -2081,6 +2456,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false)")
+    # the kernels first, one nvcc per source on every core; the child
+    # processes below start after the build
+    from dftpav_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    _cuda.build()
+    _cuda.library()
+    build_s = time.perf_counter() - t0
     # the multigear pool is planned on the host by the native front end
     # (minutes of one CPU core) in a child process while the card works
     import multiprocessing
@@ -2106,16 +2489,23 @@ def main(argv=None) -> int:
                                   EUDM_B_REF, EUDM_B_CFB_REF), daemon=True)
     eudm_proc.start()
     eudm_tx.close()
+    # phase 15's front-end lanes, likewise
+    fe_rx, fe_tx = ctx.Pipe(duplex=False)
+    fe_proc = ctx.Process(target=_fe_pool_worker,
+                          args=(fe_tx, MG8_FE, MG8_FE_B, MG8_FE_SEED,
+                                MG8_FE_LOT, MG_SEARCH_S), daemon=True)
+    fe_proc.start()
+    fe_tx.close()
     try:
-        return _run(args, pool_rx, urban_rx, eudm_rx, ctx)
+        return _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx)
     finally:
-        for proc in (pool_proc, urban_proc, eudm_proc):
+        for proc in (pool_proc, urban_proc, eudm_proc, fe_proc):
             if proc.is_alive():
                 proc.terminate()
             proc.join()
 
 
-def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
+def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
     B_main, B_chk = (1024, 1024) if args.quick else (8192, 1024)
     iters = 150
     from dftpav_tpu_torch import scenarios, solver
@@ -2132,14 +2522,13 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    t0 = time.perf_counter()
-    so = _cuda.build()
-    _cuda.library()
-    build_s = time.perf_counter() - t0
+    so = _cuda.library_path()
     log = so.with_suffix(".log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     regs = _ptxas(log)
+
+    sass = _sass_sizes(so)       # cuobjdump: ~20 s, so once
 
     def regs_of(tag):
         """(registers, spill store bytes) of the kernel whose name holds
@@ -2151,7 +2540,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     _emit("device", device=kind, nvidia_smi=smi.splitlines()[0],
           torch=torch.__version__, cuda=torch.version.cuda,
           build_s=round(build_s, 3), nvcc_s=_nvcc_seconds(log), ptxas=ptxas,
-          machine_instructions=_sass_sizes(so))
+          machine_instructions=sass)
 
     dims = Dims(S=1, N=8, K=16, Kdes=32, H=4, O=2, Po=8)
     cfg = PlannerConfig()
@@ -2412,8 +2801,6 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                                  f"fail their gate")
         return t
 
-    kernel_times(batch)
-
     # ---- 4. the main path ----
     big = fixture(B_main)
     solve = solver.make_solver(cfg, dims, max_iterations=iters,
@@ -2478,6 +2865,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         return dims, x0v, scv, kcv
 
     def parent_ab():
+        """The --parent lines; returns the other build's compiler log."""
         so_other, build_s_other, other = _other_kernel_b(args.parent)
         _emit("parent_build", csrc=args.parent, build_s=build_s_other,
               nvcc_s=_nvcc_seconds(so_other.with_suffix(".log").read_text()),
@@ -2564,9 +2952,9 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         _emit("profile", B=B_main, device_time=sorted(
             (r for r in rows if r["device_ms"] > 0),
             key=lambda r: -r["device_ms"])[:12])
+        return so_other.with_suffix(".log").read_text()
 
-    if args.parent:
-        parent_ab()
+    parent_log = parent_ab() if args.parent else None
 
     # ---- 5. kernels K2 / K3 vs plain ----
     from dftpav_tpu_torch import cost
@@ -2727,10 +3115,10 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     # ("auto": the kernels for CUDA tensors) ----
     # at B=2048 (8192 before the multigear phase; the path is host bound,
     # so its time is nearly independent of B, and the run needs the
-    # minutes for phase 7)
+    # minutes for phase 7) and REF_ITERS iterations
     B_bm = min(B_main, 2048)
     fix_bm = fixture(B_bm)
-    solve_p = solver.make_solver(cfg, dims, iters, engine="bminor")
+    solve_p = solver.make_solver(cfg, dims, REF_ITERS, engine="bminor")
     solver.make_solver(cfg, dims, 5, engine="bminor")(fixture(256), w)
     torch.cuda.synchronize()
     pp.corridor_fwd.launches = 0
@@ -2747,7 +3135,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     res_p = res_bm = out["bm"]
     # the same call with the plain corridor form, on the check batch (the
     # first B_chk lanes of the same fixture; lanes solve independently)
-    solve_x = solver.make_solver(cfg_x, dims, iters, engine="bminor")
+    solve_x = solver.make_solver(cfg_x, dims, REF_ITERS, engine="bminor")
 
     def run_x():
         out["bx"] = solve_x(batch, w)
@@ -2764,7 +3152,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
     ok_bm = (s_bp >= 0.99 and abs(c_bp_chk - c_bx) <= 0.02 * abs(c_bx)
              and launches_pen["corridor_fwd"] > 0
              and launches_pen["corridor_bwd"] > 0 and shapes_ok)
-    _emit("bminor_path", B=B_bm, iters=iters, wall_ms=wall_p,
+    _emit("bminor_path", B=B_bm, iters=REF_ITERS, wall_ms=wall_p,
           solves_per_s=B_bm / (wall_p / 1e3), success=s_bp, cost_p50=c_bp,
           iters_p50_p90_p99=[_pct(res_p.n_iters.float(), q)
                              for q in (50, 90, 99)],
@@ -2776,6 +3164,7 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                                  for q in (50, 90, 99)],
           jax_reference_quality={
               "success": 1.0, "cost_p50": 4361, "iters_p50": 99, "B": 1024,
+              "iters": 150,
               "source": "JAX bminor on a TPU v5e (BENCH_r01.json, "
                         "SKILL.md); not the port's"},
           tol="success>=0.99, cost p50 of the first xla_B lanes within 2% "
@@ -2925,8 +3314,10 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
             # cudaFuncGetAttributes: registers, local memory per thread
             t[f"registers_{k.lower()}"] = info["registers"]
             t[f"local_bytes_{k.lower()}"] = info["local_bytes"]
-        outs = {"status": infob[0].cpu().numpy(), "fp": fb.cpu().numpy(),
-                "k12": k12.cpu().numpy()}
+        _x, f_ref, info_ref = _cuda.launch_solve_fused(
+            x0m, fA, gA, scm, kcm, sw, dims_m, "auto", p, REF_ITERS, tuned)
+        outs = {"status": info_ref[0].cpu().numpy(),
+                "fp": f_ref.cpu().numpy(), "k12": k12.cpu().numpy()}
         return t, outs, ok_a and torch.isfinite(xb).all().item()
 
     def np_success_cost(st, fp):
@@ -2944,33 +3335,65 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
         mg_t[ns] = (t_path, ok_path, t_k, ok_k)
         mg_out[ns] = outs
     # 7b. the plain round loop per class in float64, from x0 and from
-    # MG_PERTURB perturbed copies of it, in parallel processes (each host
-    # bound; the card is otherwise idle now)
-    plain = {}
-    workers = ctx.Pool(processes=7)
-    try:
-        # one job per class, its runs batched; the longest loops (most
-        # segments) first, so that no long one starts last
-        jobs = {ns: workers.apply_async(
-            _plain_worker, (_mg_dims(ns), mg_np[ns], (None, *MG_PERTURB),
-                            iters))
-            for ns in sorted(mg_np, key=lambda ns: -len(ns))}
-        for ns, job in jobs.items():
-            for seed, r in job.get(timeout=900).items():
-                plain[(ns, seed)] = r
-    finally:
-        workers.terminate()
-        workers.join()
+    # MG_PERTURB perturbed copies of it: one job per class, its runs
+    # batched, run with phases 14's and 15's in phase 14's pool of child
+    # processes (each host bound, the card otherwise idle then); the
+    # longest loops (most segments) first, so that no long one starts last.
+    # The gates follow that pool.
+    mg_jobs = {("mg", ns): (_mg_dims(ns), mg_np[ns], (None, *MG_PERTURB),
+                            REF_ITERS)
+               for ns in sorted(mg_np, key=lambda ns: -len(ns))}
 
+    # ---- 8. the replanning path: warm and gated streams, multigear warm
+    # replans, latency, the closed loop, uniform N = 2 / 4 classes ----
+    ns_big = max((ns for ns in mg_np if len(ns) == 2),
+                 key=lambda ns: pool[ns].ini_state.shape[0])
+    rp_paths = _replan_phase(cfg, dims, tuned, w, big, res, B_chk, ns_big,
+                             mg_np[ns_big], iters, ctx)
+
+    # ---- 9. the park demo: S = 4 classes through the server ----
+    rp_paths["park_demo"] = _park_phase()
+
+    # ---- 10. the vmap (reference) engine on CUDA tensors ----
+    _vmap_phase(cfg, w, batch, res_bm,
+                solver.make_solver(cfg, dims, REF_ITERS, engine="fused"),
+                iters=REF_ITERS)
+
+    # ---- 11. the urban path: lane nets, the urban demo, batched MPDM and
+    # SSC, the arena (no kernel of the port lies on it) ----
+    _urban_phase(urban_rx)
+
+    # ---- 12. the EUDM path: the demo with EUDM, batched EUDM and CFB, the
+    # behaviour server (no kernel of the port lies on it) ----
+    _eudm_phase(eudm_rx)
+
+    # ---- 13. the sharded solver: kernels A and B (and K2 / K3 on its
+    # bminor leg) per rank ----
+    sharded = _sharded_phase(res, B_main, iters)
+
+    # ---- 15. the many-gear classes, their work on the card (their float64
+    # loops run in phase 14's pool, their gates after it)
+    mg8, mg8_jobs = _manygear_card(cfg, w, sw, tuned, iters, a_gate, fe_rx)
+
+    # ---- 14. the class domain: N = 5 / 6 / 16, Ns = (16, 8), m = 64 / 256
+    cd_launches, cd_rows_a, cd_rows_b, ref_plain = _class_domain_phase(
+        cfg, w, sw, tuned, iters, ctx, big, res, a_gate,
+        more=dict(sorted({**mg8_jobs, **mg_jobs}.items(),
+                         key=lambda kv: -(kv[1][0].S + 3 * kv[1][0].O))))
+
+    # ---- 7. the multigear path's gates, on phase 14's pool's float64 loops
+    plain = {(ns, seed): r for (_k, ns), runs in ref_plain.items()
+             if _k == "mg" for seed, r in runs.items()}
     per_class, mg_rows, mg_failed = {}, [], []
     mg_launches = [0, 0]
     for ns, (t_path, ok_path, t_k, ok_k) in mg_t.items():
         k_out = mg_out[ns]
         p64 = plain[(ns, None)]
         s_k, c_k = np_success_cost(k_out["status"], k_out["fp"])
-        s_64, c_64 = np_success_cost(p64[iters]["status"], p64[iters]["fp"])
-        pert = [np_success_cost(plain[(ns, sd)][iters]["status"],
-                                plain[(ns, sd)][iters]["fp"])
+        s_64, c_64 = np_success_cost(p64[REF_ITERS]["status"],
+                                     p64[REF_ITERS]["fp"])
+        pert = [np_success_cost(plain[(ns, sd)][REF_ITERS]["status"],
+                                plain[(ns, sd)][REF_ITERS]["fp"])
                 for sd in MG_PERTURB]
         spread_s = max(abs(v[0] - s_64) for v in pert)
         spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
@@ -2984,14 +3407,16 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                    success_cost_p50_plain_f64_perturbed=pert,
                    spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
                    share_12iter_vs_f64=share_k,
-                   plain_ms_b_f64=p64[iters]["seconds"] * 1e3,
-                   plain_lanes_b_f64=p64[iters]["lanes"])
+                   plain_ms_b_f64=p64[REF_ITERS]["seconds"] * 1e3,
+                   plain_lanes_b_f64=p64[REF_ITERS]["lanes"],
+                   iters_vs_plain=REF_ITERS)
         ok = ok_path and ok_k and ok_s and ok_c and ok_12
         mg_launches[0] += t_path["launches"]["eval_fg"]
         mg_launches[1] += t_path["launches"]["solve_fused"]
         mg_rows.append(dict(ns=list(ns), **t_k))
         tol = ("A vs plain float64: |df|/|f|<=1e-4, max|dg|<=1e-3*max(1,"
-               "max|g|); B vs the plain round loop in float64: |dsuccess|<="
+               "max|g|); B vs the plain round loop in float64, "
+               "iters_vs_plain iterations each: |dsuccess|<="
                "0.02+spread, |dcost p50|<=(2%+spread) (spread: the float64 "
                "loop's own largest move with x0 perturbed by 1e-7, 3 seeds), "
                "12-iteration paths equal on >=50% of the lanes; both kernels "
@@ -3037,41 +3462,15 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                              f"gates")
     if not ok_agg:
         raise AssertionError("multigear path: ladder success below 0.99")
-    sizes = _sass_sizes(so) or {}
+    sizes = sass or {}
     _emit("multigear_compiler", ptxas={
         k: v for k, v in regs.items() if "kernelILi" in k},
         machine_instructions={k: v for k, v in sizes.items()
                               if "kernelILi" in k})
 
-    # ---- 8. the replanning path: warm and gated streams, multigear warm
-    # replans, latency, the closed loop, uniform N = 2 / 4 classes ----
-    ns_big = max((ns for ns in mg_np if len(ns) == 2),
-                 key=lambda ns: pool[ns].ini_state.shape[0])
-    rp_paths = _replan_phase(cfg, dims, tuned, w, big, res, B_chk, ns_big,
-                             mg_np[ns_big], iters, ctx)
-
-    # ---- 9. the park demo: S = 4 classes through the server ----
-    rp_paths["park_demo"] = _park_phase()
-
-    # ---- 10. the vmap (reference) engine on CUDA tensors ----
-    _vmap_phase(cfg, w, batch, res_bm,
-                solver.make_solver(cfg, dims, iters, engine="fused"))
-
-    # ---- 11. the urban path: lane nets, the urban demo, batched MPDM and
-    # SSC, the arena (no kernel of the port lies on it) ----
-    _urban_phase(urban_rx)
-
-    # ---- 12. the EUDM path: the demo with EUDM, batched EUDM and CFB, the
-    # behaviour server (no kernel of the port lies on it) ----
-    _eudm_phase(eudm_rx)
-
-    # ---- 13. the sharded solver: kernels A and B (and K2 / K3 on its
-    # bminor leg) per rank ----
-    sharded = _sharded_phase(res, B_main, iters)
-
-    # ---- 14. the class domain: N = 5 / 6 / 16, Ns = (16, 8), m = 64 / 256
-    cd_launches, cd_rows_a, cd_rows_b = _class_domain_phase(
-        cfg, w, sw, tuned, iters, ctx, big, res, a_gate)
+    # ---- 15. the many-gear classes' gates: S = 5 to 8
+    mg8_launches, mg8_rows_a, mg8_rows_b = _manygear_gates(
+        cfg, mg8, ref_plain, parent_log, sass)
 
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
@@ -3083,14 +3482,16 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                               "multigear": mg_launches[0],
                               **{k: v[0] for k, v in rp_paths.items()},
                               "sharded": sharded[0],
-                              "class_domain": cd_launches[0]},
+                              "class_domain": cd_launches[0],
+                              "manygear": mg8_launches[0]},
          "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_a"],
                         "plain_ms": r["plain_ms_a"],
                         "bound_ms": r["bound_ms_a"],
                         "bound_by": r["bound_by_a"],
                         "max_abs_err": r["max_abs_err_a"],
                         "err_of": "f and g vs plain float64 at the class's "
-                                  "x0"} for r in mg_rows] + cd_rows_a,
+                                  "x0"} for r in mg_rows] + cd_rows_a
+         + mg8_rows_a,
          "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"],
          "bound_ms": times_main["bound_ms_a"],
          "bound_by": times_main["bound_by_a"], "library_ms": None},
@@ -3103,12 +3504,13 @@ def _run(args, pool_rx, urban_rx, eudm_rx, ctx) -> int:
                               "multigear": mg_launches[1],
                               **{k: v[1] for k, v in rp_paths.items()},
                               "sharded": sharded[1],
-                              "class_domain": cd_launches[1]},
+                              "class_domain": cd_launches[1],
+                              "manygear": mg8_launches[1]},
          "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_b"],
                         "plain_ms_f64": r["plain_ms_b_f64"],
                         "bound_ms": r["bound_ms_b"],
                         "bound_by": r["bound_by_b"]} for r in mg_rows]
-         + cd_rows_b,
+         + cd_rows_b + mg8_rows_b,
          "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"],
          "bound_ms": times_main["bound_ms_b"],
          "bound_by": times_main["bound_by_b"], "library_ms": None},

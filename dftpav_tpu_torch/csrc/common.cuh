@@ -65,13 +65,34 @@ template <class T> DFT_HD T sl1_grad(T x) {
 constexpr int kMaxH = 8;
 
 // Largest number of gear segments the kernels take.
-constexpr int kMaxS = 4;
+constexpr int kMaxS = 8;
 
-// a[s] for s < kMaxS by selects, so that an array of a struct in
-// registers is never indexed at run time.
+// Per-segment slots of a class's tables (KW, LaneData, Layout) in the
+// kernels of S segments: four in the S <= 4 kernels, whose code a wider
+// table would change (it moves their kernel parameters, and a table
+// indexed at run time may then live on their stack), kMaxS in the others.
+template <int S>
+constexpr int kSlots = S <= 4 ? 4 : kMaxS;
+
+// a[s] for s < 4 by selects, so that an array of a struct in registers is
+// never indexed at run time.
 template <class V>
 DFT_HD V pick(const V* a, int s) {
   return s == 0 ? a[0] : (s == 1 ? a[1] : (s == 2 ? a[2] : a[3]));
+}
+
+// a[s] for s < S, the kernels of S segments: at S <= 4 the chain above,
+// else one select per segment.
+template <int S, class V>
+DFT_HD V pick_s(const V* a, int s) {
+  if constexpr (S <= 4) {
+    return pick(a, s);
+  } else {
+    V v = a[S - 1];
+    DFT_UNROLL
+    for (int j = S - 2; j >= 0; --j) v = s == j ? a[j] : v;
+    return v;
+  }
 }
 
 }  // namespace dftpav

@@ -206,25 +206,34 @@ enum WIdx {
   W_NON_SINV = 33,
   W_NSEG = 34,    // gear segments S
   W_NS = 35,      // kMaxS values: pieces n_s of segment s
-  W_RS = 39,      // kMaxS values: weighted sample rows of segment s
-  W_SIG = 43,     // kMaxS values: virtual-time sigma of segment s
-  W_CAP = 47,     // capacity: the pieces per segment the layout has room for
-  W_LEN = 48
+  W_RS = W_NS + kMaxS,    // kMaxS values: weighted sample rows of segment s
+  W_SIG = W_RS + kMaxS,   // kMaxS values: virtual-time sigma of segment s
+  W_CAP = W_SIG + kMaxS,  // capacity: the pieces per segment the layout
+                          // has room for
+  W_LEN = W_CAP + 1
 };
 
-template <class T>
+// The weights and the class, with K per-segment slots (kSlots<S> in the
+// kernels of S segments; kMaxS on the host, to check a class).
+template <class T, int K>
 struct KW {
   T wei_obs, wei_sur, wei_feas, wei_time;
   T mfv, mfa, mfc, mbv, mba, mbc;
   T mini_t, epis, alpha, cost_scale, near_r2, d_min, non_sinv;
   T le[4][2], eh[4][2];
-  int nseg, ns[kMaxS], rs[kMaxS], cap;
-  T sig[kMaxS];
+  int nseg, ns[K], rs[K], cap;
+  T sig[K];
 };
 
-template <class T, class S>
-DFT_HD KW<T> make_kw(const S* a) {
-  KW<T> w;
+// The KW of the kernels of S segments.
+template <class T, int S>
+using KWS = KW<T, kSlots<S>>;
+
+// The weight vector (W_LEN values) as a KW of K slots (its first K
+// segments).
+template <class T, int K, class S>
+DFT_HD KW<T, K> make_kw(const S* a) {
+  KW<T, K> w;
   w.wei_obs = T(a[W_WEI_OBS]); w.wei_sur = T(a[W_WEI_SUR]);
   w.wei_feas = T(a[W_WEI_FEAS]); w.wei_time = T(a[W_WEI_TIME]);
   w.mfv = T(a[W_MFV]); w.mfa = T(a[W_MFA]); w.mfc = T(a[W_MFC]);
@@ -239,7 +248,7 @@ DFT_HD KW<T> make_kw(const S* a) {
     }
   w.nseg = int(a[W_NSEG]);
   w.cap = int(a[W_CAP]);
-  for (int s = 0; s < kMaxS; ++s) {
+  for (int s = 0; s < K; ++s) {
     w.ns[s] = int(a[W_NS + s]);
     w.rs[s] = int(a[W_RS + s]);
     w.sig[s] = T(a[W_SIG + s]);
@@ -373,10 +382,10 @@ struct Edge {
   S hx, hy, d_tilde;
 };
 
-template <class S, class T>
+template <class S, class T, int K>
 DFT_HD Edge<S> edge_of(int i, const S& u, const S& v, const S& uo,
                        const S& vo, const S& rel_x, const S& rel_y,
-                       const KW<T>& w) {
+                       const KW<T, K>& w) {
   const bool ego = i < 4;
   const int e = ego ? i : i - 4;
   const S& a_u = ego ? u : uo;   // the edge's frame
@@ -394,9 +403,9 @@ DFT_HD Edge<S> edge_of(int i, const S& u, const S& v, const S& uo,
 }
 
 // Cross term f of edge i: h . (the other hull's vertex f, rotated).
-template <class S, class T>
+template <class S, class T, int K>
 DFT_HD S edge_cross(int i, int f, const Edge<S>& g, const S& u, const S& v,
-                    const S& uo, const S& vo, const KW<T>& w) {
+                    const S& uo, const S& vo, const KW<T, K>& w) {
   const bool ego = i < 4;
   const S& b_u = ego ? uo : u;   // the other hull's frame
   const S& b_v = ego ? vo : v;
@@ -433,9 +442,10 @@ struct RunLse {
 // When the bound clears d_min by 1e-3 m (far above float rounding of D),
 // d_min - D < 0 and the penalty is exactly 0, so only pairs that fail it
 // go on to the dual-number pass.
-template <class T>
+template <class T, int K>
 DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T pt, const ObsLane<T>& ol,
-                          const T* cx, const T* cy, int Po, const KW<T>& w) {
+                          const T* cx, const T* cy, int Po,
+                          const KW<T, K>& w) {
   const ObsAt<T> a = obstacle_at<T, T>(pt, ol, cx, cy, Po);
   const T rel_x = a.p_x - sx;
   const T rel_y = a.p_y - sy;
@@ -462,10 +472,10 @@ DFT_HD bool obstacle_near(T sx, T sy, T u, T v, T pt, const ObsLane<T>& ol,
 // sample's absolute time). Both log-sum-exps (over an edge's 4 cross
 // terms, and over the 8 edges) run online, so no array of dual numbers is
 // held.
-template <class S, class T>
+template <class S, class T, int K>
 DFT_HD S obstacle_pen(const S& sx, const S& sy, const S& u, const S& v,
                       const S& pt, const ObsLane<T>& ol, const T* cx,
-                      const T* cy, int Po, const KW<T>& w) {
+                      const T* cy, int Po, const KW<T, K>& w) {
   const ObsAt<S> a = obstacle_at<S, T>(pt, ol, cx, cy, Po);
   S uo, vo;
   obstacle_heading(a, cx, cy, uo, vo);
@@ -529,13 +539,14 @@ struct NearPair {
 // shared by every lane, one set per distinct piece count (segments with
 // equal n_s share theirs); the lane's rows are its own; the rest is the
 // team's scratch (shared memory on the card). lane_eval points the
-// segment fields (planes .. bnd) at the segment it works on.
-template <class T>
+// segment fields (planes .. bnd) at the segment it works on. K: the
+// per-segment slots (kSlots<S>).
+template <class T, int K>
 struct LaneData {
-  const double* Pds[kMaxS];  // [3][R_s][C] sample maps, in double
-  const T* Ps[kMaxS];        // the same in T
-  const T* Qs[kMaxS];        // [C][C] jerk form
-  const T* gridcs[kMaxS];    // [2][R_s] quadrature weight (0: skipped), frac
+  const double* Pds[K];  // [3][R_s][C] sample maps, in double
+  const T* Ps[K];        // the same in T
+  const T* Qs[K];        // [C][C] jerk form
+  const T* gridcs[K];    // [2][R_s] quadrature weight (0: skipped), frac
   int H, O, Po;
   int seg_rows;          // rows of a segment in the slabs (their R)
   Planes<T> planes_lane;  // the lane's half-planes of row 0, segment 0;
@@ -563,6 +574,10 @@ struct LaneData {
   T sgl, tt;             // gear sign, time offset
   const T* bnd;          // [12] its boundary
 };
+
+// The LaneData of the kernels of S segments.
+template <class T, int S>
+using LaneS = LaneData<T, kSlots<S>>;
 
 // Copies lane `lane`'s boundary rows, gear signs and segment masks, and
 // obstacle coefficients from the slabs into the team's scratch (bnd_s
@@ -638,8 +653,8 @@ DFT_HD T virtual_to_real(T vt, T mini_t) {
   return (vt > T(0) ? Tpos : T(1) / qneg) + mini_t;
 }
 
-template <class T>
-DFT_HD EvPre<T> ev_pre(T x_vt, T sigma, int ns, T sgl, const KW<T>& w) {
+template <class T, int K>
+DFT_HD EvPre<T> ev_pre(T x_vt, T sigma, int ns, T sgl, const KW<T, K>& w) {
   EvPre<T> e;
   e.vt = x_vt * sigma;
   e.qneg = (T(0.5) * e.vt - T(1)) * e.vt + T(1);
@@ -658,7 +673,7 @@ DFT_HD EvPre<T> ev_pre(T x_vt, T sigma, int ns, T sgl, const KW<T>& w) {
 
 // rhs entry i = d (N + 5) + c of the segment (_pre).
 template <class T, int N, int S>
-DFT_HD T rhs_entry(int i, const LaneData<T>& L, const EvPre<T>& e) {
+DFT_HD T rhs_entry(int i, const LaneS<T, S>& L, const EvPre<T>& e) {
   constexpr int C = N + 5;
   const int d = i / C, c = i - d * C, ns = L.ns;
   const int seg = S == 1 ? 0 : L.s;
@@ -675,8 +690,8 @@ DFT_HD T rhs_entry(int i, const LaneData<T>& L, const EvPre<T>& e) {
 // (Q rhs_d)_c for entry i = d (N + 5) + c, stored to qr; returns entry i's
 // share of the jerk energy rhs^T Q rhs. In double: the quadratic form
 // cancels heavily (Q's entries are large next to the energy).
-template <class T, int N>
-DFT_HD double jerk_entry(int i, const LaneData<T>& L) {
+template <class T, int N, int K>
+DFT_HD double jerk_entry(int i, const LaneData<T, K>& L) {
   constexpr int C = N + 5;
   const int d = i / C, c = i - d * C;
   double s = 0.0;
@@ -695,8 +710,8 @@ struct RowOut {
 };
 
 template <class T, int N, int S>
-DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
-                          const KW<T>& w, const Acc<T>& acc, double& f) {
+DFT_HD RowOut<T> row_pass(int r, const LaneS<T, S>& L, const EvPre<T>& e,
+                          const KWS<T, S>& w, const Acc<T>& acc, double& f) {
   constexpr int C = N + 5;
   RowOut<T> out;
   out.near = 0u;
@@ -814,9 +829,9 @@ DFT_HD RowOut<T> row_pass(int r, const LaneData<T>& L, const EvPre<T>& e,
 // chained to the rhs slots, dT and (multi-gear) tt, added to the member's
 // partials.
 template <class T, int N, int S>
-DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
-                      const EvPre<T>& e, const KW<T>& w, const Acc<T>& acc,
-                      double& f) {
+DFT_HD void dual_pass(const NearPair<T>& q, const LaneS<T, S>& L,
+                      const EvPre<T>& e, const KWS<T, S>& w,
+                      const Acc<T>& acc, double& f) {
   constexpr int C = N + 5;
   const int r = q.r, o = q.o, R = L.R, Po = L.Po;
   const T omg = L.gridc[r], frac = L.gridc[R + r];
@@ -868,8 +883,8 @@ DFT_HD void dual_pass(const NearPair<T>& q, const LaneData<T>& L,
 // junction-fed boundary row (multi-gear) to L.gb, and returns the slot's
 // share of d/d dT (the boundary rows scaled by dT, dT^2).
 template <class T, int N, int S>
-DFT_HD T tail_entry(int i, T gsum, const LaneData<T>& L, const EvPre<T>& e,
-                    const KW<T>& w) {
+DFT_HD T tail_entry(int i, T gsum, const LaneS<T, S>& L, const EvPre<T>& e,
+                    const KWS<T, S>& w) {
   constexpr int C = N + 5;
   const int d = i / C, c = i - d * C, ns = L.ns;
   const int seg = S == 1 ? 0 : L.s;
@@ -898,7 +913,8 @@ DFT_HD T tail_entry(int i, T gsum, const LaneData<T>& L, const EvPre<T>& e,
 // -+non_sinv (cos a, sin a) (head of the later segment -, tail of the
 // earlier +).
 template <class T, int N, int S>
-DFT_HD T seg_boundary(int i, int s, const LaneData<T>& L, const KW<T>& w) {
+DFT_HD T seg_boundary(int i, int s, const LaneS<T, S>& L,
+                      const KWS<T, S>& w) {
   constexpr int NIN = KDims<N, S>::NIN;
   const int d = i & 1, k = i >> 1;
   if (S > 1) {
@@ -919,21 +935,21 @@ DFT_HD T seg_boundary(int i, int s, const LaneData<T>& L, const KW<T>& w) {
 // Points the segment fields of L at segment s's class constants: its piece
 // count, sample maps, rows and jerk form.
 template <class T, int N, int S>
-DFT_HD void select_maps(LaneData<T>& L, const KW<T>& w, int s) {
+DFT_HD void select_maps(LaneS<T, S>& L, const KWS<T, S>& w, int s) {
   L.s = s;
-  L.ns = pick(w.ns, s);
-  L.Pd = pick(L.Pds, s);
-  L.P = pick(L.Ps, s);
-  L.Q = pick(L.Qs, s);
-  L.gridc = pick(L.gridcs, s);
-  L.R = pick(w.rs, s);
+  L.ns = pick_s<S>(w.ns, s);
+  L.Pd = pick_s<S>(L.Pds, s);
+  L.P = pick_s<S>(L.Ps, s);
+  L.Q = pick_s<S>(L.Qs, s);
+  L.gridc = pick_s<S>(L.gridcs, s);
+  L.R = pick_s<S>(w.rs, s);
 }
 
 // Points the segment fields of L at the lane's rows of segment s: its gear
 // sign and half-planes (and a time offset of 0, set by lane_eval for a
 // later segment).
-template <class T>
-DFT_HD void select_rows(LaneData<T>& L, int s) {
+template <class T, int K>
+DFT_HD void select_rows(LaneData<T, K>& L, int s) {
   L.sgl = L.lm[s];
   L.tt = T(0);
   L.planes = L.planes_lane;
@@ -948,7 +964,7 @@ DFT_HD void select_rows(LaneData<T>& L, int s) {
 // (the maps once, the rows once per lane); lane_eval selects each
 // segment of a multi-gear class.
 template <class T, int N, int S>
-DFT_HD void select_segment(LaneData<T>& L, const KW<T>& w, int s) {
+DFT_HD void select_segment(LaneS<T, S>& L, const KWS<T, S>& w, int s) {
   select_maps<T, N, S>(L, w, s);
   select_rows(L, s);
   L.bnd = S == 1 ? L.bnd_lane : L.sb;
@@ -958,7 +974,7 @@ DFT_HD void select_segment(LaneData<T>& L, const KW<T>& w, int s) {
 // member returns the same value. At S = 1 the segment fields were set by
 // select_segment.
 template <class T, int N, int S, class Team>
-DFT_HD T lane_eval(const Team& tm, LaneData<T>& L, const KW<T>& w) {
+DFT_HD T lane_eval(const Team& tm, LaneS<T, S>& L, const KWS<T, S>& w) {
   constexpr int C = N + 5, NE = 2 * C;
   constexpr int NIN = KDims<N, S>::NIN, DP = KDims<N, S>::DP;
   constexpr int kAcc = KDims<N, S>::ACC;
@@ -976,9 +992,9 @@ DFT_HD T lane_eval(const Team& tm, LaneData<T>& L, const KW<T>& w) {
       L.tt = T(0);                               // earlier segments' time
       for (int j = 0; j < s; ++j)
         L.tt = L.tt +
-               virtual_to_real(L.x[NIN + j] * pick(w.sig, j), w.mini_t);
+               virtual_to_real(L.x[NIN + j] * pick_s<S>(w.sig, j), w.mini_t);
     }
-    const T sigma = pick(w.sig, s);
+    const T sigma = pick_s<S>(w.sig, s);
     const int ns = L.ns;
     const EvPre<T> e = ev_pre(L.x[NIN + s], sigma, ns, L.sgl, w);
     T g_T = T(0), g_tt = T(0);

@@ -1,9 +1,9 @@
 // The plain C interface of kernels A and B (kernels.cuh), loaded with ctypes
 // by dftpav_tpu_torch/ops/_cuda.py, and their instantiation at capacity 8
-// for S = 1 and 2 (kernels8_s34.cu, kernels16_s12.cu and kernels16_s34.cu
-// instantiate the others, each compiled beside this file by its own nvcc
-// process into the same library). The class in the weight vector picks the
-// capacity, its S the instantiation.
+// for S = 1 and 2 (kernels8_s34.cu .. kernels16_s78.cu instantiate the
+// others, each compiled beside this file by its own nvcc process into the
+// same library). The class in the weight vector picks the capacity, its S
+// the instantiation.
 
 #include "kernels.cuh"
 
@@ -14,11 +14,16 @@ using namespace dftpav;
 
 namespace {
 
+// The class in a weight vector, every segment's slot read.
+typedef KW<float, kMaxS> KWide;
+
 // The instantiation for the class in w (class_ok has checked it).
-Ops ops_for(const KW<float>& w) {
+Ops ops_for(const KWide& w) {
   static const Ops table[2][kMaxS] = {
-      {ops_8_1(), ops_8_2(), ops_8_3(), ops_8_4()},
-      {ops_16_1(), ops_16_2(), ops_16_3(), ops_16_4()}};
+      {ops_8_1(), ops_8_2(), ops_8_3(), ops_8_4(), ops_8_5(), ops_8_6(),
+       ops_8_7(), ops_8_8()},
+      {ops_16_1(), ops_16_2(), ops_16_3(), ops_16_4(), ops_16_5(),
+       ops_16_6(), ops_16_7(), ops_16_8()}};
   return table[w.cap == 16][w.nseg - 1];
 }
 
@@ -42,7 +47,7 @@ Args make_args(const float* x, const float* f0, const float* g0,
 // Whether the class in the weight vector is one the kernels take: a built
 // capacity, 1 to kMaxS segments of 2 to capacity pieces each (any count:
 // a segment reads its own at run time), rows kept within R (all R at S = 1).
-bool class_ok(const KW<float>& w, int R) {
+bool class_ok(const KWide& w, int R) {
   if (w.cap != 8 && w.cap != 16) return false;
   if (w.nseg < 1 || w.nseg > kMaxS || (w.nseg == 1 && w.rs[0] != R))
     return false;
@@ -73,6 +78,10 @@ int dftpav_kernel_dp(int cap, int S) {
     case 2: return KDims<N_, 2>::DP;                    \
     case 3: return KDims<N_, 3>::DP;                    \
     case 4: return KDims<N_, 4>::DP;                    \
+    case 5: return KDims<N_, 5>::DP;                    \
+    case 6: return KDims<N_, 6>::DP;                    \
+    case 7: return KDims<N_, 7>::DP;                    \
+    case 8: return KDims<N_, 8>::DP;                    \
   }
   if (cap == 8) DFT_DP(8)
   if (cap == 16) DFT_DP(16)
@@ -95,9 +104,9 @@ const char* dftpav_error_string(int code) {
 // 1 where kernel B's history does, out[7] the capacity.
 int dftpav_kernel_info(int which, const float* wts, int R, int O, int Po,
                        int m, int past, int* out) {
-  const KW<float> w = make_kw<float>(wts);
+  const KWide w = make_kw<float, kMaxS>(wts);
   if (!class_ok(w, R) || m < 1 || past < 0) return (int)cudaErrorInvalidValue;
-  return (int)ops_for(w).info(which, w, O, Po, m, past, out);
+  return (int)ops_for(w).info(which, wts, O, Po, m, past, out);
 }
 
 // Bytes of the scratch buffer (one per launch, device memory, 256-byte
@@ -106,13 +115,13 @@ int dftpav_kernel_info(int which, const float* wts, int R, int O, int Po,
 // the kernels take.
 int dftpav_scratch_bytes(int which, const float* wts, int B, int R, int H,
                          int O, int Po, int m, int past, long long* bytes) {
-  const KW<float> w = make_kw<float>(wts);
+  const KWide w = make_kw<float, kMaxS>(wts);
   if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0 || m < 1 ||
       past < 0 || !class_ok(w, R))
     return (int)cudaErrorInvalidValue;
   size_t n = 0;
   const cudaError_t err =
-      ops_for(w).scratch(which, w, B, R, H, O, Po, m, past, &n);
+      ops_for(w).scratch(which, wts, B, R, H, O, Po, m, past, &n);
   *bytes = (long long)n;
   return (int)err;
 }
@@ -127,7 +136,7 @@ int dftpav_eval_fg(const float* x, const float* bnd, const float* misc,
                    const float* gridc, const float* wts, int B, int R, int H,
                    int O, int Po, float* f_out, float* g_out, void* scratch,
                    void* stream) {
-  const KW<float> w = make_kw<float>(wts);
+  const KWide w = make_kw<float, kMaxS>(wts);
   if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0 ||
       !class_ok(w, R))
     return (int)cudaErrorInvalidValue;
@@ -137,7 +146,7 @@ int dftpav_eval_fg(const float* x, const float* bnd, const float* misc,
   a.g_out = g_out;
   unsigned char* sc = (unsigned char*)scratch;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)ops_for(w).eval(a, w, sc, st);
+  return (int)ops_for(w).eval(a, wts, sc, st);
 }
 
 // Whole solve from (x0 [DP, B], f0 [B], g0 [DP, B]) -> x_out [DP, B],
@@ -153,7 +162,7 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
                        int max_ls, int mem, int past, int adaptive, int B,
                        int R, int H, int O, int Po, float* x_out,
                        float* f_out, int* info, void* scratch, void* stream) {
-  const KW<float> w = make_kw<float>(wts);
+  const KWide w = make_kw<float, kMaxS>(wts);
   if (H < 0 || H > kMaxH || R <= 0 || B <= 0 || O < 0 || Po <= 0 ||
       mem < 1 || past < 0 || !class_ok(w, R))
     return (int)cudaErrorInvalidValue;
@@ -166,7 +175,7 @@ int dftpav_solve_fused(const float* x0, const float* f0, const float* g0,
       make_lp<float>(lbp, max_iter, max_ls, mem, past, adaptive);
   unsigned char* sc = (unsigned char*)scratch;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)ops_for(w).solve(a, w, lp, sc, st);
+  return (int)ops_for(w).solve(a, wts, lp, sc, st);
 }
 
 }  // extern "C"

@@ -1,9 +1,8 @@
 // Hand-written Hopper kernels for the batched whole-solve, as templates on
 // the class's capacity N and segments S; kernels.cu exports the plain C
 // interface (loaded with ctypes by dftpav_tpu_torch/ops/_cuda.py), and it
-// and kernels8_s34.cu, kernels16_s12.cu and kernels16_s34.cu each
-// instantiate some (N, S) (DFT_DEFINE_OPS), so that nvcc compiles them in
-// parallel.
+// and kernels<N>_s<S..>.cu each instantiate some (N, S) (DFT_DEFINE_OPS),
+// so that nvcc compiles them in parallel.
 //
 //   kernel A  eval_fg_kernel: objective + gradient for every lane
 //             (replaces dftpav_tpu/ops/kcost.py eval_fg)
@@ -28,21 +27,24 @@
 // only its weighted rows.
 //
 // The class: capacity N (8 or 16: the pieces per segment the decision
-// vector and the rhs have room for) and S (1 to 4) are template
+// vector and the rhs have room for) and S (1 to 8) are template
 // arguments; each segment's own piece count (any n_s from 2 to N), rows and
 // sigma are read at run time from the weight vector, so that every class
-// with the same capacity and S runs the same code. The L-BFGS memory m and
-// past window are run-time arguments; at capacity 8 kernel B is also built
-// with m = 16 fixed (solve.cuh kFixedMem), the main path's code.
+// with the same capacity and S runs the same code. The kernels of S <= 4
+// hold four per-segment slots in their tables, those of S = 5 to 8 kMaxS
+// (common.cuh kSlots). The L-BFGS memory m and past window are run-time
+// arguments; at capacity 8 and S <= 4 kernel B is also built with m = 16
+// fixed (solve.cuh kFixedMem), the main path's code.
 //
 // Where things live (place, decided per class on the host):
 //   * the class constants stay in shared memory wherever they and at least
-//     kMinWarps warp slices fit, and always at capacity 8; beyond
-//     (capacity 16: N = 16, and the multi-gear classes at N >= 12, whose
-//     sample maps alone outgrow the 227 KB a block may have), a small
-//     kernel writes them once per launch into a global scratch in the
-//     same layout, and the warps read them there (~240 KB: resident in the
-//     card's 50 MB L2);
+//     kMinWarps warp slices fit, and always at capacity 8 and S <= 4;
+//     beyond (capacity 16: N = 16, and the multi-gear classes at N >= 12,
+//     whose sample maps alone outgrow the 227 KB a block may have; and a
+//     class of more than four segments whose distinct piece counts and
+//     wider slices leave fewer warps), a small kernel writes them once per
+//     launch into a global scratch in the same layout, and the warps read
+//     them there (~240 KB: resident in the card's 50 MB L2);
 //   * the history stays in the warp's slice up to kMemShared pairs (so the
 //     m = 16 classes keep the layout they always had) and lies in a
 //     per-lane global scratch [B][hist_floats] above.
@@ -104,25 +106,31 @@ struct Args {
 // The host side of one instantiation (capacity N, S segments): launches
 // of kernels A and B, their occupancy and the scratch they need
 // (eval_s .. scratch_s below).
+// Each takes the weight vector (W_LEN floats, the class at its end) and
+// reads it with the instantiation's slots.
 struct Ops {
-  cudaError_t (*eval)(Args a, const KW<float>& w, unsigned char* scratch,
+  cudaError_t (*eval)(Args a, const float* wts, unsigned char* scratch,
                       cudaStream_t st);
-  cudaError_t (*solve)(Args a, const KW<float>& w, const LP<float>& lp,
+  cudaError_t (*solve)(Args a, const float* wts, const LP<float>& lp,
                        unsigned char* scratch, cudaStream_t st);
-  cudaError_t (*info)(int which, const KW<float>& w, int O, int Po, int m,
+  cudaError_t (*info)(int which, const float* wts, int O, int Po, int m,
                       int past, int* out);
-  cudaError_t (*scratch)(int which, const KW<float>& w, int B, int R, int H,
+  cudaError_t (*scratch)(int which, const float* wts, int B, int R, int H,
                          int O, int Po, int m, int past, size_t* bytes);
 };
 
 // ops_<N>_<S>(): each defined (DFT_DEFINE_OPS) in the source file that
 // compiles that instantiation, so that nvcc builds them in parallel:
 // kernels.cu capacity 8 at S = 1, 2, kernels8_s34.cu at S = 3, 4,
-// kernels16_s12.cu and kernels16_s34.cu capacity 16.
+// kernels8_s56.cu and kernels8_s78.cu at S = 5 to 8, and
+// kernels16_s<S..>.cu the same pairs of S at capacity 16.
 #define DFT_DECLARE_OPS(N_, S_) Ops ops_##N_##_##S_();
 DFT_DECLARE_OPS(8, 1) DFT_DECLARE_OPS(8, 2) DFT_DECLARE_OPS(8, 3)
 DFT_DECLARE_OPS(8, 4) DFT_DECLARE_OPS(16, 1) DFT_DECLARE_OPS(16, 2)
 DFT_DECLARE_OPS(16, 3) DFT_DECLARE_OPS(16, 4)
+DFT_DECLARE_OPS(8, 5) DFT_DECLARE_OPS(8, 6) DFT_DECLARE_OPS(8, 7)
+DFT_DECLARE_OPS(8, 8) DFT_DECLARE_OPS(16, 5) DFT_DECLARE_OPS(16, 6)
+DFT_DECLARE_OPS(16, 7) DFT_DECLARE_OPS(16, 8)
 #undef DFT_DECLARE_OPS
 
 namespace {
@@ -132,25 +140,38 @@ constexpr int kMaxThreads = 32 * kMaxWarps;
 // Warps per block below which the class constants leave shared memory.
 constexpr int kMinWarps = 4;
 
-// Byte offsets of the class constants (per segment; segments with equal
-// piece counts share theirs) from their base (shared memory, or the global
-// scratch), and of a warp's slice in shared memory: the slices start at
-// warp0 (after the constants when those are shared, else at 0).
+// Byte offsets of the class constants (per segment, K slots; segments with
+// equal piece counts share theirs) from their base (shared memory, or the
+// global scratch), and of a warp's slice in shared memory: the slices
+// start at warp0 (after the constants when those are shared, else at 0).
+template <int K>
 struct Layout {
-  size_t pd[kMaxS], p[kMaxS], q[kMaxS], gridc[kMaxS], consts, warp0, slice;
+  size_t pd[K], p[K], q[K], gridc[K], consts, warp0, slice;
   size_t rhs, qr, x, g, bnd, lm, sb, gb, hs, hy, ys, alpha, pf, ol, ring,
       acc, obs;
   int m, consts_global, hist_global;
 };
 
+// The Layout of the kernels of S segments.
+template <int S>
+using LayoutS = Layout<kSlots<S>>;
+
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // The first segment with segment s's piece count (whose constants s uses).
-__host__ __device__ inline int slot_of(const KW<float>& w, int s) {
+template <int K>
+__host__ __device__ inline int slot_of(const KW<float, K>& w, int s) {
   int j = 0;
   while (w.ns[j] != w.ns[s]) ++j;
   return j;
 }
+
+// Whether the class constants may lie in global memory: at capacity 16,
+// and in the classes of more than four segments (kernels A and B then
+// read them through generic loads); at capacity 8 and S <= 4 they are
+// always shared, which the compiler knows (shared-memory loads).
+template <int N, int S>
+constexpr bool kConstsMayLeave = N > 8 || S > 4;
 
 // m: history pairs (0: none, kernel A); hist_global: they lie in the
 // per-lane global scratch, not in the slice. The kernels compute their
@@ -158,12 +179,13 @@ __host__ __device__ inline int slot_of(const KW<float>& w, int s) {
 // are known at compile time (the class's capacity and S, and m for the
 // kernels with m fixed) fold into the loads' immediates.
 template <int N, int S>
-__host__ __device__ inline Layout layout(const KW<float>& w, int O, int Po,
-                                         int m, int past, bool consts_global,
-                                         bool hist_global) {
+__host__ __device__ inline LayoutS<S> layout(const KWS<float, S>& w, int O,
+                                             int Po, int m, int past,
+                                             bool consts_global,
+                                             bool hist_global) {
   typedef KDims<N, S> Dm;
   const size_t C = Dm::C, DP = Dm::DP;
-  Layout l;
+  LayoutS<S> l;
   size_t o = 0;
   if constexpr (S == 1) {        // one segment: all R rows, one flat copy
     const size_t R = (size_t)w.rs[0];
@@ -222,8 +244,8 @@ __host__ __device__ inline Layout layout(const KW<float>& w, int O, int Po,
 // [S][3][R][C] maps, [S][2][R] quadrature rows, [S][C][C] jerk form) to
 // `base` in the layout's order; thread t of nt takes elements t, t + nt, ...
 template <int N, int S>
-__device__ void stage_consts(const Args& a, const KW<float>& w,
-                             unsigned char* base, const Layout& l, int t,
+__device__ void stage_consts(const Args& a, const KWS<float, S>& w,
+                             unsigned char* base, const LayoutS<S>& l, int t,
                              int nt) {
   const int C = KDims<N, S>::C, R = a.R;
   if constexpr (S == 1) {        // all R rows (w.rs[0] == R)
@@ -265,12 +287,12 @@ __device__ void stage_consts(const Args& a, const KW<float>& w,
 
 // The layout a kernel runs with: kernel B with m fixed at compile time
 // (KM > 0) or at run time (KM = 0), kernel A (KM = -1: no history); at
-// capacity 8 the constants are always shared.
+// capacity 8 and S <= 4 the constants are always shared.
 template <int N, int S, int KM>
-__device__ __forceinline__ Layout kernel_layout(const Args& a,
-                                                const KW<float>& w) {
+__device__ __forceinline__ LayoutS<S> kernel_layout(const Args& a,
+                                                    const KWS<float, S>& w) {
   return layout<N, S>(w, a.O, a.Po, KM > 0 ? KM : (KM == 0 ? a.m : 0),
-                      a.past, N > 8 && a.consts_global,
+                      a.past, kConstsMayLeave<N, S> && a.consts_global,
                       KM == 0 && a.hist_global);
 }
 
@@ -278,11 +300,12 @@ __device__ __forceinline__ Layout kernel_layout(const Args& a,
 // put them in global memory.
 template <int N, int S>
 __device__ const unsigned char* block_consts(const Args& a,
-                                             const KW<float>& w,
+                                             const KWS<float, S>& w,
                                              unsigned char* sm,
-                                             const Layout& l) {
-  // capacity 8: always shared, known at compile time (shared-memory loads)
-  if constexpr (N > 8)
+                                             const LayoutS<S>& l) {
+  // capacity 8 and S <= 4: always shared, known at compile time
+  // (shared-memory loads)
+  if constexpr (kConstsMayLeave<N, S>)
     if (l.consts_global) return a.consts;
   stage_consts<N, S>(a, w, sm, l, threadIdx.x, blockDim.x);
   __syncthreads();
@@ -290,14 +313,16 @@ __device__ const unsigned char* block_consts(const Args& a,
 }
 
 template <int N, int S>
-__global__ void consts_kernel(Args a, KW<float> w, Layout l) {
+__global__ void consts_kernel(Args a, KWS<float, S> w, LayoutS<S> l) {
   stage_consts<N, S>(a, w, a.consts, l, blockIdx.x * blockDim.x + threadIdx.x,
                      gridDim.x * blockDim.x);
 }
 
-// This warp's view of its slice, and the block's constants.
+// This warp's view of its slice, and the block's constants (K: the
+// per-segment slots).
+template <int K>
 struct Slice {
-  LaneData<float> L;
+  LaneData<float, K> L;
   SolverMem<float> M;
   float* bnd;
   float* lm;
@@ -306,16 +331,17 @@ struct Slice {
 };
 
 template <int N, int S>
-__device__ Slice slice_of(const Args& a, const KW<float>& kw,
-                          const unsigned char* cb, unsigned char* sm,
-                          const Layout& l, int wid) {
+__device__ Slice<kSlots<S>> slice_of(const Args& a, const KWS<float, S>& kw,
+                                     const unsigned char* cb,
+                                     unsigned char* sm, const LayoutS<S>& l,
+                                     int wid) {
   unsigned char* w = sm + l.warp0 + (size_t)wid * l.slice;
-  Slice s;
+  Slice<kSlots<S>> s;
   s.bnd = (float*)(w + l.bnd);
   s.lm = (float*)(w + l.lm);
   s.obs = (float*)(w + l.obs);
   s.ol = (ObsLane<float>*)(w + l.ol);
-  LaneData<float>& L = s.L;
+  LaneS<float, S>& L = s.L;
   if constexpr (S == 1) {
     // one segment: its constants and boundary rows, once (its rows of the
     // slabs are selected per lane)
@@ -369,15 +395,15 @@ __device__ inline Slabs<float> slabs_of(const Args& a) {
 
 template <int N, int S>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    eval_fg_kernel(Args a, KW<float> w) {
+    eval_fg_kernel(Args a, KWS<float, S> w) {
   constexpr int DP = KDims<N, S>::DP;
   extern __shared__ __align__(16) unsigned char sm[];
-  const Layout l = kernel_layout<N, S, -1>(a, w);
+  const LayoutS<S> l = kernel_layout<N, S, -1>(a, w);
   const unsigned char* cb = block_consts<N, S>(a, w, sm, l);
   const int wid = threadIdx.x >> 5;
   WarpTeam<DP> tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of<N, S>(a, w, cb, sm, l, wid);
+  Slice<kSlots<S>> s = slice_of<N, S>(a, w, cb, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
   const int nw = blockDim.x >> 5;
   for (int lane = blockIdx.x * nw + wid; lane < a.B;
@@ -399,17 +425,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // KM: the history length fixed at compile time (kFixedMem), else 0.
 template <int N, int S, int KM>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    solve_kernel(Args a, KW<float> w, LP<float> p) {
+    solve_kernel(Args a, KWS<float, S> w, LP<float> p) {
   constexpr int DP = KDims<N, S>::DP;
   typedef WarpTeam<DP> Team;
   constexpr int V = Team::kVec;
   extern __shared__ __align__(16) unsigned char sm[];
-  const Layout l = kernel_layout<N, S, KM>(a, w);
+  const LayoutS<S> l = kernel_layout<N, S, KM>(a, w);
   const unsigned char* cb = block_consts<N, S>(a, w, sm, l);
   const int wid = threadIdx.x >> 5;
   Team tm;
   tm.m = threadIdx.x & 31;
-  Slice s = slice_of<N, S>(a, w, cb, sm, l, wid);
+  Slice<kSlots<S>> s = slice_of<N, S>(a, w, cb, sm, l, wid);
   const Slabs<float> sl = slabs_of(a);
   for (;;) {
     int lane = 0;
@@ -475,7 +501,8 @@ inline cudaError_t max_smem(int* out) {
 }
 
 // Warps per block for layout l within `smem` bytes (kMaxWarps at most).
-inline int warps_for(const Layout& l, int smem) {
+template <int K>
+inline int warps_for(const Layout<K>& l, int smem) {
   int nw = kMaxWarps;
   while (nw > 0 && l.warp0 + nw * l.slice > (size_t)smem) --nw;
   return nw;
@@ -483,24 +510,26 @@ inline int warps_for(const Layout& l, int smem) {
 
 // The class's layout for kernel A (m = 0: no history) or B. The
 // constants stay in shared memory where they and kMinWarps slices fit (at
-// capacity 8 always: a class there has at most three distinct piece
-// counts, <= 140 KB of constants at the bench resolution, and kernels A and
-// B keep their shared-memory loads), else they go to global memory; the
-// history stays in the slice up to kMemShared pairs and while a slice with
-// it fits, else it goes to global memory. *ok = false where not even one
-// slice fits.
+// capacity 8 and S <= 4 always: a class there has at most three distinct
+// piece counts, <= 140 KB of constants at the bench resolution, and
+// kernels A and B keep their shared-memory loads), else they go to global
+// memory; the history stays in the slice up to kMemShared pairs and while
+// a slice with it fits, else it goes to global memory. *ok = false where
+// not even one slice fits.
 template <int N, int S>
-inline Layout place(const KW<float>& w, int O, int Po, int m, int past,
-                    int smem, bool* ok) {
+inline LayoutS<S> place(const KWS<float, S>& w, int O, int Po, int m,
+                        int past, int smem, bool* ok) {
+  constexpr bool may_leave = kConstsMayLeave<N, S>;
   const int first_h = m > kMemShared ? 1 : 0;
   *ok = true;
-  for (int c = 0; c < (N > 8 ? 2 : 1); ++c)
+  for (int c = 0; c < (may_leave ? 2 : 1); ++c)
     for (int h = first_h; h < 2; ++h) {
-      const Layout l = layout<N, S>(w, O, Po, m, past, c == 1, h == 1);
-      if (warps_for(l, smem) >= (c == 0 && N > 8 ? kMinWarps : 1)) return l;
+      const LayoutS<S> l = layout<N, S>(w, O, Po, m, past, c == 1, h == 1);
+      if (warps_for(l, smem) >= (c == 0 && may_leave ? kMinWarps : 1))
+        return l;
     }
   *ok = false;
-  return layout<N, S>(w, O, Po, m, past, N > 8, true);
+  return layout<N, S>(w, O, Po, m, past, may_leave, true);
 }
 
 // The scratch buffer of one launch (byte offsets, 256-aligned): kernel B's
@@ -513,7 +542,8 @@ struct Scratch {
 inline size_t up256(size_t n) { return (n + 255) & ~(size_t)255; }
 
 template <int N, int S>
-inline Scratch scratch_layout(int which, const Layout& l, int B, int R, int H) {
+inline Scratch scratch_layout(int which, const LayoutS<S>& l, int B, int R,
+                              int H) {
   Scratch s;
   size_t o = 0;
   s.queue = o;
@@ -535,8 +565,8 @@ struct Plan {
   int warps, smem, per_sm, blocks;
 };
 
-template <class K>
-cudaError_t plan(K kernel, const Layout& l, Plan* pl) {
+template <class Kern, int K>
+cudaError_t plan(Kern kernel, const Layout<K>& l, Plan* pl) {
   int dev = 0, sms = 0, smem = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -565,9 +595,10 @@ cudaError_t plan(K kernel, const Layout& l, Plan* pl) {
 // one warp per lane) with the layout l (its inputs set in a), after
 // writing the constants to global memory where l puts them there; `params`
 // are its arguments after Args and KW.
-template <int N, int S, class K, class... Params>
-cudaError_t launch(K kernel, Args a, const KW<float>& w, const Layout& l,
-                   cudaStream_t stream, const Params&... params) {
+template <int N, int S, class Kern, class... Params>
+cudaError_t launch(Kern kernel, Args a, const KWS<float, S>& w,
+                   const LayoutS<S>& l, cudaStream_t stream,
+                   const Params&... params) {
   Plan pl;
   cudaError_t err = plan(kernel, l, &pl);
   if (err != cudaSuccess) return err;
@@ -586,21 +617,22 @@ cudaError_t launch(K kernel, Args a, const KW<float>& w, const Layout& l,
 }
 
 template <int N, int S>
-cudaError_t eval_s(Args a, const KW<float>& w, unsigned char* scratch,
+cudaError_t eval_s(Args a, const float* wts, unsigned char* scratch,
                    cudaStream_t st) {
+  const KWS<float, S> w = make_kw<float, kSlots<S>>(wts);
   int smem = 0;
   bool ok = false;
   cudaError_t err = max_smem(&smem);
   if (err != cudaSuccess) return err;
-  const Layout l = place<N, S>(w, a.O, a.Po, 0, 0, smem, &ok);
+  const LayoutS<S> l = place<N, S>(w, a.O, a.Po, 0, 0, smem, &ok);
   if (!ok) return cudaErrorInvalidConfiguration;
   a.consts = scratch + scratch_layout<N, S>(0, l, a.B, a.R, a.H).consts;
   return launch<N, S>(eval_fg_kernel<N, S>, a, w, l, st);
 }
 
 template <int N, int S, int KM>
-cudaError_t solve_km(Args a, const KW<float>& w, const LP<float>& lp,
-                     const Layout& l, unsigned char* scratch,
+cudaError_t solve_km(Args a, const KWS<float, S>& w, const LP<float>& lp,
+                     const LayoutS<S>& l, unsigned char* scratch,
                      cudaStream_t st) {
   const Scratch sc = scratch_layout<N, S>(1, l, a.B, a.R, a.H);
   a.past = lp.past;
@@ -621,23 +653,24 @@ cudaError_t solve_km(Args a, const KW<float>& w, const LP<float>& lp,
 
 // Whether kernel B runs the class with m fixed at compile time (kFixedMem):
 // its m, and its history in the slice.
-template <int N>
-inline bool fixed_mem(const Layout& l) {
-  return kFixedMem<N> > 0 && l.m == kFixedMem<N> && !l.hist_global;
+template <int N, int S>
+inline bool fixed_mem(const LayoutS<S>& l) {
+  return kFixedMem<N, S> > 0 && l.m == kFixedMem<N, S> && !l.hist_global;
 }
 
 template <int N, int S>
-cudaError_t solve_s(Args a, const KW<float>& w, const LP<float>& lp,
+cudaError_t solve_s(Args a, const float* wts, const LP<float>& lp,
                     unsigned char* scratch, cudaStream_t st) {
+  const KWS<float, S> w = make_kw<float, kSlots<S>>(wts);
   int smem = 0;
   bool ok = false;
   cudaError_t err = max_smem(&smem);
   if (err != cudaSuccess) return err;
-  const Layout l = place<N, S>(w, a.O, a.Po, lp.mem, lp.past, smem, &ok);
+  const LayoutS<S> l = place<N, S>(w, a.O, a.Po, lp.mem, lp.past, smem, &ok);
   if (!ok) return cudaErrorInvalidConfiguration;
-  if constexpr (kFixedMem<N> > 0)
-    if (fixed_mem<N>(l))
-      return solve_km<N, S, kFixedMem<N>>(a, w, lp, l, scratch, st);
+  if constexpr (kFixedMem<N, S> > 0)
+    if (fixed_mem<N, S>(l))
+      return solve_km<N, S, kFixedMem<N, S>>(a, w, lp, l, scratch, st);
   return solve_km<N, S, 0>(a, w, lp, l, scratch, st);
 }
 
@@ -646,24 +679,26 @@ cudaError_t solve_s(Args a, const KW<float>& w, const LP<float>& lp,
 // [4] shared memory per block, [5] constants in global memory (0 / 1), [6]
 // history in global memory, [7] the capacity.
 template <int N, int S>
-cudaError_t info_s(int which, const KW<float>& w, int O, int Po, int m,
+cudaError_t info_s(int which, const float* wts, int O, int Po, int m,
                    int past, int* out) {
+  const KWS<float, S> w = make_kw<float, kSlots<S>>(wts);
   int smem = 0;
   bool ok = false;
   cudaError_t err = max_smem(&smem);
   if (err != cudaSuccess) return err;
-  const Layout l = place<N, S>(w, O, Po, which == 0 ? 0 : m, past, smem, &ok);
+  const LayoutS<S> l =
+      place<N, S>(w, O, Po, which == 0 ? 0 : m, past, smem, &ok);
   if (!ok) return cudaErrorInvalidConfiguration;
   cudaFuncAttributes fa;
   Plan pl;
-  const bool fixed = which == 1 && fixed_mem<N>(l);
+  const bool fixed = which == 1 && fixed_mem<N, S>(l);
   if (which == 0) {
     err = cudaFuncGetAttributes(&fa, eval_fg_kernel<N, S>);
     if (err == cudaSuccess) err = plan(eval_fg_kernel<N, S>, l, &pl);
   } else if (fixed) {
-    err = cudaFuncGetAttributes(&fa, solve_kernel<N, S, kFixedMem<N>>);
+    err = cudaFuncGetAttributes(&fa, solve_kernel<N, S, kFixedMem<N, S>>);
     if (err == cudaSuccess)
-      err = plan(solve_kernel<N, S, kFixedMem<N>>, l, &pl);
+      err = plan(solve_kernel<N, S, kFixedMem<N, S>>, l, &pl);
   } else {
     err = cudaFuncGetAttributes(&fa, solve_kernel<N, S, 0>);
     if (err == cudaSuccess) err = plan(solve_kernel<N, S, 0>, l, &pl);
@@ -683,13 +718,15 @@ cudaError_t info_s(int which, const KW<float>& w, int O, int Po, int m,
 // Bytes of the scratch buffer that kernel `which` needs for this class and
 // batch.
 template <int N, int S>
-cudaError_t scratch_s(int which, const KW<float>& w, int B, int R, int H,
+cudaError_t scratch_s(int which, const float* wts, int B, int R, int H,
                       int O, int Po, int m, int past, size_t* bytes) {
+  const KWS<float, S> w = make_kw<float, kSlots<S>>(wts);
   int smem = 0;
   bool ok = false;
   cudaError_t err = max_smem(&smem);
   if (err != cudaSuccess) return err;
-  const Layout l = place<N, S>(w, O, Po, which == 0 ? 0 : m, past, smem, &ok);
+  const LayoutS<S> l =
+      place<N, S>(w, O, Po, which == 0 ? 0 : m, past, smem, &ok);
   if (!ok) return cudaErrorInvalidConfiguration;
   *bytes = scratch_layout<N, S>(which, l, B, R, H).total;
   return cudaSuccess;

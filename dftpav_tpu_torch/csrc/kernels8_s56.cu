@@ -1,0 +1,9 @@
+// Kernels A and B at capacity 8 (classes of 2 to 8 pieces per segment)
+// for S = 5 and 6: the same templates as the others (kernels.cuh), with
+// kMaxS per-segment slots, in a file of their own so that nvcc compiles
+// them in parallel with the others.
+
+#include "kernels.cuh"
+
+DFT_DEFINE_OPS(8, 5)
+DFT_DEFINE_OPS(8, 6)

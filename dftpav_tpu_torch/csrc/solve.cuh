@@ -43,15 +43,17 @@ constexpr int kMemShared = 16;
 // Past-f window slots a slice reserves at least (it holds max(past, this)).
 constexpr int kPastSlots = 8;
 
-// At capacity 8, kernel B is also built with m = kMemShared fixed at
-// compile time (lane_solve's KM): the history then stays in the slice and
-// its ring has a constant length, the code the m = 16 classes (the main
-// path's) ran before m became a run-time value; with m at run time their
-// kernel B measured 4-16% slower on the bench class (more instructions,
-// history loads that may be shared or global; PERF.md section 6). Other
-// m, and capacity 16, run with m at run time (KM = 0).
-template <int N>
-constexpr int kFixedMem = N == 8 ? kMemShared : 0;
+// At capacity 8 and S <= 4, kernel B is also built with m = kMemShared
+// fixed at compile time (lane_solve's KM): the history then stays in the
+// slice and its ring has a constant length, the code the m = 16 classes
+// (the main path's) ran before m became a run-time value; with m at run
+// time their kernel B measured 4-16% slower on the bench class (more
+// instructions, history loads that may be shared or global; PERF.md
+// section 6). Other m, capacity 16, and the classes of more than four
+// segments (one kernel B each, which keeps their build short) run with m
+// at run time (KM = 0).
+template <int N, int S>
+constexpr int kFixedMem = N == 8 && S <= 4 ? kMemShared : 0;
 
 template <class T>
 struct LP {
@@ -145,8 +147,8 @@ DFT_HD int ring_slot(int i, int m) {
 // branches. KM: the history length when it is fixed at compile time (then
 // M.m == KM), else 0 (ring_slot).
 template <class T, int N, int S, int KM, class Team>
-DFT_HD SolveOut lane_solve(const Team& tm, LaneData<T>& L,
-                           const KW<T>& w, const LP<T>& p,
+DFT_HD SolveOut lane_solve(const Team& tm, LaneS<T, S>& L,
+                           const KWS<T, S>& w, const LP<T>& p,
                            const SolverMem<T>& M, const T* x0, T f0,
                            const T* g0, T* x_out, T* f_out) {
   constexpr int DP = KDims<N, S>::DP, V = Team::kVec;

@@ -168,7 +168,7 @@ def _check(name, t, shape):
 # segment (the largest capacity, csrc/kernels.cu kCaps) and corridor
 # half-planes per row (kMaxH); _check_inputs holds a class to the loaded
 # library's own limits.
-MAX_S = 4
+MAX_S = 8
 MAX_N = max(CAPACITIES)
 MAX_H = 8
 

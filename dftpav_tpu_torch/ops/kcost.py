@@ -23,7 +23,7 @@ from the decision vector, and absolute obstacle time offset by the earlier
 segments' durations. Every function here also takes a KClass, the layout
 the kernels run a class in: N there is a capacity (8 or 16) and each
 segment's own piece count n_s is any from 2 to N (kernel_class). The
-kernels take S <= 4 (ops/_cuda.py).
+kernels take S <= 8 (ops/_cuda.py).
 """
 
 from __future__ import annotations

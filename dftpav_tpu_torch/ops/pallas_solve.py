@@ -12,7 +12,7 @@ lane, not the max.
 `solve_batch_fused` is the wrapper: for CUDA tensors it evaluates the
 initial point with kernel A (kcost.eval_fg) and runs the whole round loop
 with kernel B (csrc/kernels.cu `dftpav_solve_fused`, one warp per lane,
-each lane exiting on its own; S <= 4 gear segments of 2 to 16 pieces each,
+each lane exiting on its own; S <= 8 gear segments of 2 to 16 pieces each,
 any L-BFGS memory m and past window); for CPU tensors it runs the plain
 loop, any S and N. Every class runs in the layout of its kernel class
 (embedded_class, kcost.KClass): a capacity of 8 or 16 pieces per segment,
@@ -366,8 +366,8 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
     evaluation, kernel B for the round loop, the class in the layout of its
     kernel class (module docstring). CPU tensors run the plain round loop
     (solve_batch_rounds) instead. Same arguments and return as
-    solve_batch_rounds; a class the kernels do not take (S > 4, a segment
-    of more than 16 pieces) raises NotImplementedError."""
+    solve_batch_rounds; a class the kernels do not take (S > 8, a segment
+    of more than 16 pieces, H > 8) raises NotImplementedError."""
     if not batch.init_T.is_cuda:
         return solve_batch_rounds(batch, w, dims, cfg, max_iterations,
                                   flags, x0_override, return_x)

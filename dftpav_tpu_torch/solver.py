@@ -7,7 +7,7 @@ Usage:
     result = solve_with_retry(solve, scenario_batch, weights)
 
 Engines (same per-lane algorithm):
-  "fused": the whole-solve CUDA kernels for CUDA tensors (S <= 4, any
+  "fused": the whole-solve CUDA kernels for CUDA tensors (S <= 8, any
       Dims.Ns); CPU tensors run the plain round loop.
   "rounds": the plain PyTorch round loop on any device.
   "bminor": the batch-minor engine (ops/bcost objective by autograd,

@@ -39,21 +39,21 @@ using namespace dftpav;
 template <class T, int G, int N, int S>
 struct Lane {
   typedef KDims<N, S> Dm;
-  static constexpr int kC = Dm::C;
-  std::vector<double> Pd[kMaxS];
-  std::vector<T> Pc[kMaxS], gc[kMaxS];
+  static constexpr int kC = Dm::C, kK = kSlots<S>;
+  std::vector<double> Pd[kK];
+  std::vector<T> Pc[kK], gc[kK];
   std::vector<T> bnd, lm, obs, hist, pf;
   std::vector<ObsLane<T>> ol;
   std::vector<NearPair<T>> ring;
   T x[Dm::DP], g[Dm::DP], qr[2 * kC], acc[Dm::ACC * G], sb[12], gb[8];
   double rhs[2 * kC];
-  LaneData<T> L;
+  LaneS<T, S> L;
   SolverMem<T> M;
-  Lane(const T* P, const T* Q, const T* gridc, const KW<T>& w, int R, int H,
-       int O, int Po, int m, int past)
+  Lane(const T* P, const T* Q, const T* gridc, const KWS<T, S>& w, int R,
+       int H, int O, int Po, int m, int past)
       : bnd(12 * S), lm(2 * S), obs(12 * O * Po + 1), ol(O + 1),
         ring(2 * G) {
-    for (int s = 0; s < kMaxS; ++s) {
+    for (int s = 0; s < kK; ++s) {
       const int q = s < S ? s : 0, rs = w.rs[q];
       Pd[s].resize(3 * rs * kC);
       Pc[s].resize(3 * rs * kC);
@@ -104,7 +104,7 @@ static void eval_all(const T* x, const T* bnd, const T* misc, const T* cn,
                      const T* Q, const T* gridc, const double* wts, int B,
                      int R, int H, int O, int Po, T* f, T* g) {
   typedef KDims<N, S> Dm;
-  const KW<T> w = make_kw<T>(wts);
+  const KWS<T, S> w = make_kw<T, kSlots<S>>(wts);
   const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
   Lane<T, G, N, S> ln(P, Q, gridc, w, R, H, O, Po, 0, 0);
   for (int lane = 0; lane < B; ++lane) {
@@ -129,7 +129,7 @@ static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
                       int R, int H, int O, int Po, T* x_out, T* f_out,
                       int* info) {
   typedef KDims<N, S> Dm;
-  const KW<T> w = make_kw<T>(wts);
+  const KWS<T, S> w = make_kw<T, kSlots<S>>(wts);
   const LP<T> p = make_lp<T>(lbp, max_iter, max_ls, mem, past, adaptive);
   const Slabs<T> s = slabs(bnd, misc, cn, cp, cm, obs, B, R, H, O, Po, S);
   const int RS = S * R;
@@ -155,10 +155,11 @@ static void solve_all(const T* x0, const T* f0, const T* g0, const T* bnd,
     }
     // the card's choice of kernel: m fixed at compile time, or run-time m
     const SolveOut o =
-        kFixedMem<N> > 0 && mem == kFixedMem<N>
-            ? lane_solve<T, N, S, kFixedMem<N>>(HostTeam<G, Dm::DP>(), ln.L,
-                                                w, p, ln.M, xl, f0[lane], gl,
-                                                xo, &f_out[lane])
+        kFixedMem<N, S> > 0 && mem == kFixedMem<N, S>
+            ? lane_solve<T, N, S, kFixedMem<N, S>>(HostTeam<G, Dm::DP>(),
+                                                   ln.L, w, p, ln.M, xl,
+                                                   f0[lane], gl, xo,
+                                                   &f_out[lane])
             : lane_solve<T, N, S, 0>(HostTeam<G, Dm::DP>(), ln.L, w, p, ln.M,
                                      xl, f0[lane], gl, xo, &f_out[lane]);
     for (int i = 0; i < Dm::DP; ++i) x_out[i * B + lane] = xo[i];

@@ -339,13 +339,13 @@ def test_domain_admits(dims, mem, past):
 
 
 @pytest.mark.parametrize("dims,limit", [
-    (Dims(S=5, N=8), "S <= 4"), (Dims(S=5, N=2), "S <= 4"),
+    (Dims(S=9, N=8), "S <= 8"), (Dims(S=9, N=2), "S <= 8"),
     (Dims(S=1, N=17), "N <= 16"), (Dims(S=2, N=32, Ns=(32, 16)), "N <= 16")])
 def test_domain_refuses_with_the_limit(dims, limit):
     """What the kernels refuse raises NotImplementedError naming the limit
     (the plain round loop takes every class)."""
     with pytest.raises(NotImplementedError, match=limit):
-        _cuda.check_domain(dims, max_s=4, max_n=16, max_h=8)
+        _cuda.check_domain(dims, max_s=8, max_n=16, max_h=8)
 
 
 def test_domain_refuses_bad_lbfgs_settings():

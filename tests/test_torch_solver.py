@@ -161,7 +161,7 @@ def test_cuda_without_a_card_raises():
 
 def test_multigear_raises_not_implemented():
     """What still raises for multi-gear classes: the kernels past
-    S = 4 (NotImplementedError in the binding's checks; the plain round
+    S = 8 (NotImplementedError in the binding's checks; the plain round
     loop takes any S), and the bminor and vmap engines with per-segment
     piece classes (ValueError, as in JAX). make_solver takes S=2 and
     Dims.Ns on "fused" and "rounds"."""
@@ -171,7 +171,7 @@ def test_multigear_raises_not_implemented():
     lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S)
     with pytest.raises(NotImplementedError):
         _cuda._check_inputs(lib, None, None, None,
-                            Dims(S=5, N=8, K=16, Kdes=32, H=4, O=1, Po=8))
+                            Dims(S=9, N=8, K=16, Kdes=32, H=4, O=1, Po=8))
     for dims in (Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8),
                  Dims(S=2, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(8, 2)),
                  Dims(S=1, N=8, K=16, Kdes=32, H=4, O=1, Po=8, Ns=(4,))):
