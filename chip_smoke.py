@@ -246,8 +246,39 @@ non-zero and prints no final result):
      last real segment's fin_state within 1e-3 m; the ladder's success
      at least the direct solve's. Then every instantiation's ptxas
      registers and spill bytes and machine instructions and, with
-     --parent, the other build's beside them (the S <= 4
-     instantiations', whose code this build keeps).
+     --parent, every kernel of the other build whose registers, spills or
+     machine instructions differ from this build's (none, where this
+     build only adds instantiations).
+ 16. capacity 32 (kernels A and B at classes with a segment of 17 to 32
+     pieces): Dims(S=1, N=32, O=2) (one ~26 s forward drive, two movers),
+     Dims(S=1, N=24) (N = 24 embedded into capacity 32), Dims(S=2, N=32,
+     Ns=(32, 8)) (a long approach, then an ~8 s reverse) and Dims(S=5,
+     N=32, Ns=(32, 8, 4, 2, 2)) (then a many-point turn), K=16, Kdes=32,
+     H=4, O=0 where not stated, on _fixtures.long_gear_batch lanes (seed
+     3: a drive of 90-144 m through a 40 x 60 m lot's aisles at 3.5-4.5
+     m/s, then the maneuvers into a bay; pieces of 0.8-1.2 s as the
+     reference pieces a segment) at B=1024; and C32-frontend, the front
+     end's own long drives: 32 single-gear queries of 90-130 m down a 30 x
+     160 m lot planned by pipeline.ParkingPlanner over the ladder N = 2
+     ... 32 (each ~19-26 s, so every one must plan into the N = 32 class).
+     Each class through solver.make_solver(engine="fused") (one warm-up,
+     best of 3), kernels A and B alone (CUDA events) with their
+     kernel_info. Gates: the float64 plain round loop ends no lane at a
+     negative cost (else the fixture, not the kernel, is at fault); kernel
+     A at x0 against the plain objective in float64, per lane |df|/|f| <=
+     1e-4 and max|dg| <= 1e-3 * max(1, max|g|) (C32-frontend, whose
+     positions of up to ~140 m float32 resolves to ~1e-1 of float64, by
+     phase 15's rule); kernel B on the first 256 lanes (all 32 of
+     C32-frontend) against the float64 plain round loop
+     at REF_ITERS = 100 iterations (x0 and three copies perturbed by 1e-7,
+     in phase 14's pool of child processes): success within 0.02 and cost
+     p50 within 2% beyond the loop's own spread, 12-iteration paths equal
+     on >= 50% of the lanes; both kernels launched on every call; finite
+     coefficients from ini_state[0] to the last segment's fin_state within
+     1e-3 m. Phases 15 and 16 share one table-driven card loop and one gate
+     loop; phase 15's lines also print the float64 loop's negative-cost
+     lanes, which gate phase 16 only. (Phase 15's compiler line lists the
+     capacity-32 instantiations' code too.)
 Then one line {"kernels": [...]} with every kernel's launches on its path,
 error, times and bound (the least time the card could take: the larger of
 the bytes each input is read once and each output written once over
@@ -268,8 +299,9 @@ lanes, so lanes that share a warp or a block take the same path), and on
 phase 7's S = 4 classes and a two-gear class at B=256, with whether the
 two builds' outputs are bitwise equal and that build's build seconds,
 ptxas registers, spills and machine instructions; then traces one launch
-of kernels A and B with torch.profiler; phase 15 then prints that
-build's registers and spills beside this one's.
+of kernels A and B with torch.profiler; phase 15 then lists every kernel
+of that build whose registers, spills or machine instructions differ
+from this one's.
 """
 
 from __future__ import annotations
@@ -344,6 +376,16 @@ PEAK_F64_S = 34e12
 # m = 16 pairs (~2,000).
 FLOP_ROW_K2, FLOP_ROW_K3, FLOP_ROW_A, FLOP64_ROW_A = 186, 460, 704, 156
 FLOP_LANE_A, FLOP_ITER_B = 1400, 2000
+
+
+def _eval_work(C):
+    """Operations of one objective evaluation of kernels A and B per
+    sample row (float32, float64) and per segment, for a segment of C =
+    n_s + 5 rhs columns: FLOP_ROW_A's terms with the sample maps (12 C in
+    float64) and the chain back (12 C) counted at this C, and the jerk
+    form and its gradient (8 C^2 + 48; FLOP_ROW_A, FLOP64_ROW_A and
+    FLOP_LANE_A at C = 13)."""
+    return (FLOP_ROW_A - FLOP64_ROW_A + 12 * C, 12 * C, 8 * C * C + 48)
 
 
 def _bound(nbytes, flops, flops64=0):
@@ -2191,18 +2233,131 @@ def _kernel_key(name):
     return f"{m.group(1)}<{','.join(re.findall(r'Li(-?\d+)E', m.group(2)))}>"
 
 
-def _manygear_card(cfg, w, sw, tuned, iters, a_gate, fe_rx):
-    """Phase 15's work on the card (module docstring): each class through
-    solve_batch_fused, kernels A and B alone, kernel A's gate, the output
-    gate; the front end's class also through the retry ladder. Emits the
-    front-end pool's line. Returns {class: numbers} and the plain loop's
-    jobs {("mg8", class): _plain_worker arguments}."""
-    from dftpav_tpu_torch import solver
+def _class_card(dims_n, npb, cfg, w, sw, tuned, iters, a_gate, solve, a_ok,
+                last=None):
+    """One class's work on the card, as phases 15 and 16 do it: the path
+    `solve` (a Scenario batch on the card -> SolveResult) timed (one
+    warm-up, best of 3) with the path's launches counted over those calls;
+    kernels A and B alone at the embedded x0 (CUDA events), their
+    kernel_info; kernel A against the plain objective (`a_gate`'s numbers,
+    held by `a_ok`); kernel B's 12- and REF_ITERS-iteration runs for the
+    float64 comparison; finite coefficients from ini_state[0] to the
+    fin_state of each lane's last real segment (`last`, default S - 1)
+    within 1e-3 m. Returns (numbers, ok, kernel B's reference outcomes, the
+    batch on the card)."""
     from dftpav_tpu_torch.ops import _cuda, kcost, pallas_solve
-    from dftpav_tpu_torch.types import Dims, Scenario, from_numpy
+    from dftpav_tpu_torch.types import Scenario, from_numpy
 
     dev = torch.device("cuda")
     p = cfg.opt.lbfgs
+    bn = from_numpy(npb, Scenario, device=dev, dtype=torch.float32)
+    B = bn.init_T.shape[0]
+    keep = {}
+    kcost.eval_fg.launches = 0
+    pallas_solve.solve_batch_fused.launches = 0
+    ms_path = _cuda_ms(lambda: keep.__setitem__("r", solve(bn)), reps=3)
+    torch.cuda.synchronize()
+    l_path = [kcost.eval_fg.launches, pallas_solve.solve_batch_fused.launches]
+    dims_e = pallas_solve.embedded_class(dims_n)
+    _b, x0e, sce, kce, _D = pallas_solve._prep(
+        pallas_solve.embed_scenario(bn, dims_n, dims_e), w, dims_e,
+        torch.float32, "auto")
+    fA, gA = _cuda.launch_eval_fg(x0e, sce, kce, sw, dims_e, "auto")
+    plain = {}
+    errs, _ok = a_gate(fA, gA, x0e, sce, kce, dims_e,
+                       kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e, tuned))
+    t = {"B": B, "ms_path": ms_path,
+         "ms_a": _cuda_ms(lambda: _cuda.launch_eval_fg(
+             x0e, sce, kce, sw, dims_e, "auto"), reps=20),
+         "plain_ms_a": _cuda_ms(lambda: plain.__setitem__(
+             "a", kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e, tuned)),
+             reps=3)}
+    t["ms_b"] = _cuda_ms(lambda: keep.__setitem__(
+        "b", _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
+                                      "auto", p, iters, tuned)), reps=3)
+    xb, fb, infob = keep["b"]
+    info12 = _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
+                                      "auto", p, 12, tuned)[2]
+    _x, f_ref, info_ref = _cuda.launch_solve_fused(
+        x0e, fA, gA, sce, kce, sw, dims_e, "auto", p, REF_ITERS, tuned)
+    # the work this run's lanes need: each lane's real segments' rows, each
+    # segment at its own C = n_s + 5 (not the capacity's)
+    S = dims_e.S
+    real = (sce.misc[S:2 * S] > 0.5).double()                # [S, B]
+    rows_s = (kce.gridc[:, 0, :, 0] > 0).sum(dim=1).double()
+    row32, row64, seg = torch.tensor(
+        [_eval_work(n + 5) for n in dims_e.Ns], dtype=torch.float64,
+        device=dev).T                                           # [S] each
+    work_l = (real * (rows_s * row32 + seg)[:, None]).sum(dim=0)   # [B]
+    work64_l = (real * (rows_s * row64)[:, None]).sum(dim=0)
+    ins = _nbytes(x0e, *sce, kce.P, kce.Q[:, :dims_e.N + 5], kce.gridc)
+    t["bound_ms_a"], t["bound_by_a"] = _bound(
+        ins + _nbytes(fA, gA), float(work_l.sum()), float(work64_l.sum()))
+    ev = infob[2].double() - 1.0
+    t["bound_ms_b"], t["bound_by_b"] = _bound(
+        ins + _nbytes(fA, gA, xb, fb, infob),
+        float((ev * work_l).sum())
+        + _two_loop_flops(infob[1], p.mem_size, x0e.shape[0]),
+        float((ev * work64_l).sum()))
+    # the output: finite coefficients from ini_state[0] to the last real
+    # segment's fin_state
+    r = keep["r"]
+    c = r.coeffs
+    last = torch.as_tensor(np.full(B, dims_n.S) if last is None else last,
+                           device=dev).long() - 1
+    lanes = torch.arange(B, device=dev)
+    head_err = (c[:, 0, 0, 0] - bn.ini_state[:, 0, :, 0]).abs().max()
+    tail_err = (c[lanes, last, -1].sum(dim=1)
+                - bn.fin_state[lanes, last, :, 0]).abs().max()
+    ok_out = (tuple(c.shape) == (B, dims_n.S, dims_n.N, 6, 2)
+              and bool(torch.isfinite(c).all())
+              and max(head_err.item(), tail_err.item()) <= 1e-3)
+    t.update(errs, lane_evals_b=int(ev.sum()),
+             evals_per_lane_b_p50_p99_max=[_pct(ev, 50), _pct(ev, 99),
+                                           float(ev.max())],
+             max_abs_err_a=max((fA - plain["a"][0]).abs().max().item(),
+                               (gA - plain["a"][1]).abs().max().item()),
+             kernel_info={k: _cuda.kernel_info(dims_e, k) for k in "AB"},
+             success_path=r.success.float().mean().item(),
+             cost_p50_path=float(np.median(r.cost.double().cpu())),
+             iters_p50_p90_p99=[_pct(r.n_iters.float(), q)
+                                for q in (50, 90, 99)],
+             boundary_err_m=[head_err.item(), tail_err.item()],
+             launches=l_path, embedded_as=[dims_e.N, list(dims_e.Ns)])
+    # both kernels on every call (one warm-up and three timed)
+    ok = a_ok(errs) and ok_out and l_path == [4, 4]
+    refs = {"status": info_ref[0].cpu().numpy(), "fp": f_ref.cpu().numpy(),
+            "k12": info12.cpu().numpy()}
+    return t, ok, refs, bn
+
+
+def _a_ok_15(errs):
+    """Phases 14's and 15's kernel A gate: against plain float32, or
+    against float64 where plain float32 cannot resolve a lane."""
+    return ((errs["rel_f_max_a"] <= 1e-4
+             or errs["rel_f_max_a_vs_f64"]
+             <= max(1e-4, 4.0 * errs["plain_f32_rel_f_max_vs_f64"]))
+            and (errs["rel_g_max_a"] <= 1e-3
+                 or errs["rel_g_max_a_vs_f64"]
+                 <= max(1e-3, 4.0 * errs["plain_f32_rel_g_max_vs_f64"])))
+
+
+def _a_ok_16(errs):
+    """Phase 16's kernel A gate: against the plain objective in float64."""
+    return (errs["rel_f_max_a_vs_f64"] <= 1e-4
+            and errs["rel_g_max_a_vs_f64"] <= 1e-3)
+
+
+def _manygear_classes(cfg, w, tuned, iters, fe_rx):
+    """Phase 15's classes (module docstring) for _classes_card: each of
+    MG8_CLASSES on _mg8_fixture lanes and the front end's S = 6 class on
+    its own lanes (each ending at its last real segment), through
+    solve_batch_fused; the front end's class also through the retry
+    ladder. Emits the front-end pool's line."""
+    from dftpav_tpu_torch import solver
+    from dftpav_tpu_torch.ops import kcost, pallas_solve
+    from dftpav_tpu_torch.types import Dims
+
     got = fe_rx.recv()
     if isinstance(got, BaseException):
         raise got
@@ -2214,201 +2369,163 @@ def _manygear_card(cfg, w, sw, tuned, iters, a_gate, fe_rx):
           seed=MG8_FE_SEED, lot=MG8_FE_LOT, search_s=MG_SEARCH_S,
           seconds=fe_s, gear_segments_histogram=hist,
           ok=bool(nseg.min() >= 1 and nseg.max() <= MG8_FE["S"]))
-    fixtures = {name: (Dims(**kw), _mg8_fixture(Dims(**kw), MG8_B))
-                for name, kw in MG8_CLASSES.items()}
-    fixtures["frontend-S6"] = (Dims(**MG8_FE), fe_np)
 
-    out, jobs = {}, {}
-    for name, (dims_n, npb) in fixtures.items():
-        bn = from_numpy(npb, Scenario, device=dev, dtype=torch.float32)
-        B = bn.init_T.shape[0]
+    def entry(dims_n, npb, **kw):
+        return dict(dims=dims_n, npb=npb, solve=lambda bn: (
+            pallas_solve.solve_batch_fused(bn, w, dims_n, cfg, iters,
+                                           flags=tuned)), **kw)
+
+    def ladder(t, bn):
+        """The front end's class through solve_with_retry (timed once):
+        its success at least the direct solve's, both kernels launched."""
+        solve_m = solver.make_solver(cfg, dims_fe, max_iterations=iters,
+                                     engine="fused", flags=tuned)
         keep = {}
         kcost.eval_fg.launches = 0
         pallas_solve.solve_batch_fused.launches = 0
-        ms_path = _cuda_ms(lambda: keep.__setitem__(
-            "r", pallas_solve.solve_batch_fused(bn, w, dims_n, cfg, iters,
-                                                flags=tuned)), reps=3)
+        ms_l = _cuda_ms(lambda: keep.__setitem__(
+            "l", solver.solve_with_retry(solve_m, bn, w,
+                                         time_scales=MG_SCALES,
+                                         pad_to=MG_B)), reps=1, warmup=0)
         torch.cuda.synchronize()
-        l_path = [kcost.eval_fg.launches,
-                  pallas_solve.solve_batch_fused.launches]
-        dims_e = pallas_solve.embedded_class(dims_n)
-        _b, x0e, sce, kce, _D = pallas_solve._prep(
-            pallas_solve.embed_scenario(bn, dims_n, dims_e), w, dims_e,
-            torch.float32, "auto")
-        fA, gA = _cuda.launch_eval_fg(x0e, sce, kce, sw, dims_e, "auto")
-        plain = {}
-        errs, _ok = a_gate(fA, gA, x0e, sce, kce, dims_e,
-                           kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e,
-                                               tuned))
-        # phase 14's gate: float64 where plain float32 cannot resolve a lane
-        ok_a = ((errs["rel_f_max_a"] <= 1e-4
-                 or errs["rel_f_max_a_vs_f64"]
-                 <= max(1e-4, 4.0 * errs["plain_f32_rel_f_max_vs_f64"]))
-                and (errs["rel_g_max_a"] <= 1e-3
-                     or errs["rel_g_max_a_vs_f64"]
-                     <= max(1e-3, 4.0 * errs["plain_f32_rel_g_max_vs_f64"])))
-        t = {"B": B, "ms_path": ms_path,
-             "ms_a": _cuda_ms(lambda: _cuda.launch_eval_fg(
-                 x0e, sce, kce, sw, dims_e, "auto"), reps=20),
-             "plain_ms_a": _cuda_ms(lambda: plain.__setitem__(
-                 "a", kcost.eval_fg_plain(x0e, sce, kce, sw, dims_e, tuned)),
-                 reps=3)}
-        t["ms_b"] = _cuda_ms(lambda: keep.__setitem__(
-            "b", _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
-                                          "auto", p, iters, tuned)), reps=3)
-        xb, fb, infob = keep["b"]
-        info12 = _cuda.launch_solve_fused(x0e, fA, gA, sce, kce, sw, dims_e,
-                                          "auto", p, 12, tuned)[2]
-        _x, f_ref, info_ref = _cuda.launch_solve_fused(
-            x0e, fA, gA, sce, kce, sw, dims_e, "auto", p, REF_ITERS, tuned)
-        # the work this run's lanes need: each lane's real segments' rows
-        S = dims_e.S
-        real = (sce.misc[S:2 * S] > 0.5).double()            # [S, B]
-        rows_s = (kce.gridc[:, 0, :, 0] > 0).sum(dim=1).double()
-        rows_l = (real * rows_s[:, None]).sum(dim=0)           # [B]
-        work_l = rows_l * FLOP_ROW_A + real.sum(dim=0) * FLOP_LANE_A
-        ins = _nbytes(x0e, *sce, kce.P, kce.Q[:, :dims_e.N + 5], kce.gridc)
-        t["bound_ms_a"], t["bound_by_a"] = _bound(
-            ins + _nbytes(fA, gA), float(work_l.sum()),
-            float(rows_l.sum()) * FLOP64_ROW_A)
-        ev = infob[2].double() - 1.0
-        t["bound_ms_b"], t["bound_by_b"] = _bound(
-            ins + _nbytes(fA, gA, xb, fb, infob),
-            float((ev * work_l).sum())
-            + _two_loop_flops(infob[1], p.mem_size, x0e.shape[0]),
-            float((ev * rows_l).sum()) * FLOP64_ROW_A)
-        # the output: finite coefficients from ini_state[0] to the last
-        # real segment's fin_state
-        r = keep["r"]
-        c = r.coeffs
-        last = torch.as_tensor(nseg if name == "frontend-S6" else
-                               np.full(B, dims_n.S), device=dev).long() - 1
-        lanes = torch.arange(B, device=dev)
-        head_err = (c[:, 0, 0, 0] - bn.ini_state[:, 0, :, 0]).abs().max()
-        tail_err = (c[lanes, last, -1].sum(dim=1)
-                    - bn.fin_state[lanes, last, :, 0]).abs().max()
-        ok_out = (tuple(c.shape) == (B, dims_n.S, dims_n.N, 6, 2)
-                  and bool(torch.isfinite(c).all())
-                  and max(head_err.item(), tail_err.item()) <= 1e-3)
-        t.update(errs, lane_evals_b=int(ev.sum()),
-                 evals_per_lane_b_p50_p99_max=[_pct(ev, 50), _pct(ev, 99),
-                                               float(ev.max())],
-                 max_abs_err_a=max((fA - plain["a"][0]).abs().max().item(),
-                                   (gA - plain["a"][1]).abs().max().item()),
-                 kernel_info={k: _cuda.kernel_info(dims_e, k) for k in "AB"},
-                 success_path=r.success.float().mean().item(),
-                 cost_p50_path=float(np.median(r.cost.double().cpu())),
-                 iters_p50_p90_p99=[_pct(r.n_iters.float(), q)
-                                    for q in (50, 90, 99)],
-                 boundary_err_m=[head_err.item(), tail_err.item()],
-                 launches=l_path, embedded_as=[dims_e.N, list(dims_e.Ns)])
-        # both kernels on every call (one warm-up and three timed)
-        ok = ok_a and ok_out and l_path == [4, 4]
-        if name == "frontend-S6":
-            solve_m = solver.make_solver(cfg, dims_n, max_iterations=iters,
-                                         engine="fused", flags=tuned)
-            kcost.eval_fg.launches = 0
-            pallas_solve.solve_batch_fused.launches = 0
-            ms_l = _cuda_ms(lambda: keep.__setitem__(
-                "l", solver.solve_with_retry(solve_m, bn, w,
-                                             time_scales=MG_SCALES,
-                                             pad_to=MG_B)), reps=1, warmup=0)
-            torch.cuda.synchronize()
-            rl = keep["l"]
-            t["ladder"] = {
-                "ms": ms_l, "rate": B / (ms_l / 1e3),
-                "succ": rl.success.float().mean().item(),
-                "succ_direct": t["success_path"],
-                "cost_p50": float(np.nanmedian(rl.cost.double().cpu())),
-                "launches": [kcost.eval_fg.launches,
-                             pallas_solve.solve_batch_fused.launches]}
-            # the ladder keeps every lane that solved and re-solves the rest
-            ok = (ok and min(t["ladder"]["launches"]) > 0
-                  and t["ladder"]["succ"] >= t["success_path"]
-                  and bool(torch.isfinite(rl.coeffs).all()))
-        n = min(MG8_REF, B)
-        out[name] = dict(dims=dims_n, t=t, ok=ok,
-                         status=info_ref[0][:n].cpu().numpy(),
-                         fp=f_ref[:n].cpu().numpy(),
-                         k12=info12[:, :n].cpu().numpy())
-        jobs[("mg8", name)] = (dims_n, type(npb)(*(a[:n] for a in npb)),
-                               (None, *MG_PERTURB), REF_ITERS)
+        rl = keep["l"]
+        t["ladder"] = {
+            "ms": ms_l, "rate": bn.init_T.shape[0] / (ms_l / 1e3),
+            "succ": rl.success.float().mean().item(),
+            "succ_direct": t["success_path"],
+            "cost_p50": float(np.nanmedian(rl.cost.double().cpu())),
+            "launches": [kcost.eval_fg.launches,
+                         pallas_solve.solve_batch_fused.launches]}
+        # the ladder keeps every lane that solved and re-solves the rest
+        return (min(t["ladder"]["launches"]) > 0
+                and t["ladder"]["succ"] >= t["success_path"]
+                and bool(torch.isfinite(rl.coeffs).all()))
+
+    table = {name: entry(Dims(**kw), _mg8_fixture(Dims(**kw), MG8_B))
+             for name, kw in MG8_CLASSES.items()}
+    dims_fe = Dims(**MG8_FE)
+    table["frontend-S6"] = entry(dims_fe, fe_np, last=nseg, extra=ladder)
+    return table
+
+
+def _classes_card(tag, table, cfg, w, sw, tuned, iters, a_gate, a_ok):
+    """Phases 15's and 16's work on the card: each class of `table`
+    ({name: dims, npb (numpy lanes), solve (a batch on the card ->
+    SolveResult), optional last (_class_card's), extra (a check (numbers,
+    batch) -> ok that adds its numbers), info (numbers for its line) and
+    a_ok (the class's own kernel A gate)}) through _class_card with kernel
+    A held by `a_ok` where the class has none. Returns {class:
+    numbers} and the plain loop's jobs {(tag, class): _plain_worker
+    arguments} on the first MG8_REF lanes, from x0 and MG_PERTURB."""
+    out, jobs = {}, {}
+    for name, c in table.items():
+        t, ok, refs, bn = _class_card(
+            c["dims"], c["npb"], cfg, w, sw, tuned, iters, a_gate,
+            c["solve"], c.get("a_ok", a_ok), last=c.get("last"))
+        if "extra" in c:
+            ok = c["extra"](t, bn) and ok
+        t.update(c.get("info", {}))
+        n = min(MG8_REF, bn.init_T.shape[0])
+        out[name] = dict(dims=c["dims"], t=t, ok=ok,
+                         **{k: v[..., :n] for k, v in refs.items()})
+        jobs[(tag, name)] = (c["dims"],
+                             type(c["npb"])(*(a[:n] for a in c["npb"])),
+                             (None, *MG_PERTURB), REF_ITERS)
     return out, jobs
 
 
-def _manygear_gates(cfg, mg8, plain, parent_log, sass_all):
-    """Phase 15's gates, with the float64 plain loop's results `plain`
-    (_plain_worker's per job, REF_ITERS iterations) and the library's
-    machine instructions per kernel `sass_all` (phase 1's): emits a line
-    per class and the instantiations' code, raises on a failed gate.
-    Returns the path's launches [A, B] and the kernels line's per-class
-    rows (A, B)."""
-    iters = REF_ITERS
+def _class_gate(cfg, o, p64):
+    """Kernel B against the float64 plain round loop (_plain_worker's
+    results `p64` for the lanes of `o`, phase 14's rule): success within
+    0.02 and cost p50 within 2% beyond the loop's own largest move under
+    the MG_PERTURB perturbations, 12-iteration paths equal on >= MG_SHARE12
+    of the lanes. Adds the numbers to o["t"]; returns whether they pass
+    (and o["ok"], the card's own gates)."""
     def np_success_cost(st, fp):
         cost = fp.astype(np.float64) / cfg.opt.cost_scale
         return (float(((st >= 0) & (cost < cfg.opt.reject_cost)).mean()),
                 float(np.median(cost)))
 
+    t, iters = o["t"], REF_ITERS
+    s_k, c_k = np_success_cost(o["status"], o["fp"])
+    s_64, c_64 = np_success_cost(p64[None][iters]["status"],
+                                 p64[None][iters]["fp"])
+    pert = [np_success_cost(p64[sd][iters]["status"], p64[sd][iters]["fp"])
+            for sd in p64 if sd is not None]
+    spread_s = max(abs(v[0] - s_64) for v in pert)
+    spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
+    ref12 = np.stack([p64[None][12][k] for k in ("status", "k", "n_evals")])
+    share = float((o["k12"] == ref12).all(axis=0).mean())
+    t.update(B_plain=int(o["status"].shape[0]), success_kernel_b=s_k,
+             cost_p50_kernel_b=c_k, success_plain_f64=s_64,
+             cost_p50_plain_f64=c_64,
+             success_cost_p50_plain_f64_perturbed=pert,
+             spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
+             share_12iter_vs_f64=share,
+             plain_ms_b_f64=p64[None][iters]["seconds"] * 1e3,
+             plain_lanes_b_f64=p64[None][iters]["lanes"])
+    return (o["ok"] and share >= MG_SHARE12
+            and abs(s_k - s_64) <= 0.02 + spread_s
+            and abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64))
+
+
+def _kernel_rows(name, t, m):
+    """The kernels line's per-class rows (kernel A, kernel B) of a class's
+    numbers t (_class_card's, with _class_gate's)."""
+    return ({"class": name, "m": m, "ms": t["ms_a"],
+             "plain_ms": t["plain_ms_a"], "bound_ms": t["bound_ms_a"],
+             "bound_by": t["bound_by_a"], "max_abs_err": t["max_abs_err_a"],
+             "err_of": "f and g vs plain float32 at the class's x0",
+             "launches": t["launches"][0]},
+            {"class": name, "m": m, "ms": t["ms_b"],
+             "plain_ms_f64": t["plain_ms_b_f64"],
+             "plain_lanes": t["plain_lanes_b_f64"],
+             "bound_ms": t["bound_ms_b"], "bound_by": t["bound_by_b"],
+             "launches": t["launches"][1]})
+
+
+def _classes_gates(tag, line, cfg, out, plain, tol, neg_gate):
+    """Phases 15's and 16's gates on the classes `out` (_classes_card's),
+    with the float64 plain loop's results plain[(tag, class)]: the lanes
+    it ends at a negative cost (where it does, the jerk form's rounding
+    has outgrown its value and the fixture, not the kernel, is at fault:
+    tests/frontend_conditioning.py), a gate where `neg_gate`; then
+    _class_gate. Emits a line `line` per class and `line`_path, raises on
+    a failed gate. Returns the path's launches [A, B] and the kernels
+    line's per-class rows (A, B)."""
     launches, rows_a, rows_b, failed = [0, 0], [], [], []
-    for name, o in mg8.items():
-        t, p64 = o["t"], plain[("mg8", name)]
-        s_k, c_k = np_success_cost(o["status"], o["fp"])
-        s_64, c_64 = np_success_cost(p64[None][iters]["status"],
-                                     p64[None][iters]["fp"])
-        pert = [np_success_cost(p64[sd][iters]["status"],
-                                p64[sd][iters]["fp"]) for sd in MG_PERTURB]
-        spread_s = max(abs(v[0] - s_64) for v in pert)
-        spread_c = max(abs(v[1] - c_64) for v in pert) / abs(c_64)
-        ref12 = np.stack([p64[None][12][k] for k in ("status", "k",
-                                                      "n_evals")])
-        share = float((o["k12"] == ref12).all(axis=0).mean())
-        t.update(B_plain=int(o["status"].shape[0]), success_kernel_b=s_k,
-                 cost_p50_kernel_b=c_k, success_plain_f64=s_64,
-                 cost_p50_plain_f64=c_64,
-                 success_cost_p50_plain_f64_perturbed=pert,
-                 spread_success_f64=spread_s, spread_cost_p50_f64=spread_c,
-                 share_12iter_vs_f64=share,
-                 plain_ms_b_f64=p64[None][iters]["seconds"] * 1e3,
-                 plain_lanes_b_f64=p64[None][iters]["lanes"])
-        ok = (o["ok"] and share >= MG_SHARE12
-              and abs(s_k - s_64) <= 0.02 + spread_s
-              and abs(c_k - c_64) <= (0.02 + spread_c) * abs(c_64))
-        launches[0] += t["launches"][0] + t.get("ladder", {}).get(
-            "launches", [0, 0])[0]
-        launches[1] += t["launches"][1] + t.get("ladder", {}).get(
-            "launches", [0, 0])[1]
-        _emit("manygear", cls=name, dims=dataclasses.asdict(o["dims"]),
-              iters_vs_plain=iters, **t,
-              tol="A vs plain float32: |df|/|f|<=1e-4 and max|dg|<=1e-3*"
-                  "max(1,max|g|), or where float32 cannot hold a lane, vs "
-                  "float64 within max(tol, 4x plain float32's own error); "
-                  "B on the first B_plain lanes vs the plain round loop in "
-                  "float64, iters_vs_plain iterations each: |dsuccess|<="
-                  "0.02+spread, |dcost p50|<=(2%+"
-                  "spread) (spread: its own largest move with x0 perturbed "
-                  "by 1e-7, 3 seeds), 12-iteration paths equal on >=50% of "
-                  "the lanes; both kernels launched on every call; finite "
-                  "coefficients from ini_state[0] to the last real "
-                  "segment's fin_state within 1e-3 m; the ladder's success "
-                  ">= the direct solve's", ok=bool(ok))
-        rows_a.append({"class": name, "m": cfg.opt.lbfgs.mem_size,
-                       "ms": t["ms_a"], "plain_ms": t["plain_ms_a"],
-                       "bound_ms": t["bound_ms_a"],
-                       "bound_by": t["bound_by_a"],
-                       "max_abs_err": t["max_abs_err_a"],
-                       "err_of": "f and g vs plain float32 at the class's "
-                                 "x0", "launches": t["launches"][0]})
-        rows_b.append({"class": name, "m": cfg.opt.lbfgs.mem_size,
-                       "ms": t["ms_b"],
-                       "plain_ms_f64": t["plain_ms_b_f64"],
-                       "plain_lanes": t["plain_lanes_b_f64"],
-                       "bound_ms": t["bound_ms_b"],
-                       "bound_by": t["bound_by_b"],
-                       "launches": t["launches"][1]})
+    for name, o in out.items():
+        t, p64 = o["t"], plain[(tag, name)]
+        neg = {str(sd): int((r[REF_ITERS]["fp"] < 0).sum())
+               for sd, r in p64.items()}
+        t["f64_lanes_negative_cost"] = neg
+        ok = (_class_gate(cfg, o, p64)
+              and not (neg_gate and any(neg.values())))
+        for i in (0, 1):
+            launches[i] += (t["launches"][i]
+                            + t.get("ladder", {}).get("launches", [0, 0])[i])
+        _emit(line, cls=name, dims=dataclasses.asdict(o["dims"]),
+              iters_vs_plain=REF_ITERS, **t, tol=tol, ok=bool(ok))
+        row_a, row_b = _kernel_rows(name, t, cfg.opt.lbfgs.mem_size)
+        rows_a.append(row_a)
+        rows_b.append(row_b)
         if not ok:
             failed.append(name)
-    # the code of every instantiation, and with --parent the other build's
-    # beside this one's (the S <= 4 instantiations should be the same)
+    _emit(f"{line}_path", launches={"eval_fg": launches[0],
+                                    "solve_fused": launches[1]},
+          ok=not failed and min(launches) > 0)
+    if failed or min(launches) == 0:
+        raise AssertionError(f"{line} classes: {failed} failed their gates")
+    return launches, rows_a, rows_b
+
+
+def _compiler_line(parent_log, sass_all, parent_sass):
+    """Phase 15's compiler line: every instantiation's ptxas registers and
+    spill bytes and machine instructions (`sass_all`, phase 1's) and, with
+    --parent, every kernel of the other build (`parent_log`,
+    `parent_sass`) whose registers, spills or machine instructions differ
+    from this build's (a build that only adds instantiations keeps the
+    others' code)."""
     from dftpav_tpu_torch.ops import _cuda
 
     so = _cuda.library_path()
@@ -2420,21 +2537,130 @@ def _manygear_gates(cfg, mg8, plain, parent_log, sass_all):
     line = {"ptxas_registers_spill_store_bytes": regs,
             "machine_instructions": sass}
     if parent_log is not None:
-        old = {_kernel_key(k): v for k, v in _ptxas(parent_log).items()
-               if _kernel_key(k)}
-        line["this_and_parent_ptxas"] = {k: (regs.get(k), v)
-                                         for k, v in old.items()}
-        line["parent_registers_spills_equal"] = all(
-            regs.get(k) is not None and tuple(regs[k]) == tuple(v)
-            for k, v in old.items())
+        psass = {_kernel_key(k): v for k, v in (parent_sass or {}).items()
+                 if _kernel_key(k)}
+        old = {_kernel_key(k): (tuple(v), psass.get(_kernel_key(k)))
+               for k, v in _ptxas(parent_log).items() if _kernel_key(k)}
+        differ = {k: {"this": (regs.get(k), sass.get(k)), "parent": v}
+                  for k, v in old.items()
+                  if regs.get(k) is None or tuple(regs[k]) != v[0]
+                  or sass.get(k) != v[1]}
+        line.update(parent_kernels=len(old), parent_code_differs=differ,
+                    parent_code_equal=not differ)
     _emit("manygear_compiler", **line)
-    _emit("manygear_path", launches={"eval_fg": launches[0],
-                                     "solve_fused": launches[1]},
-          ok=not failed and min(launches) > 0)
-    if failed or min(launches) == 0:
-        raise AssertionError(f"many-gear classes: {failed} failed their "
-                             f"gates")
-    return launches, rows_a, rows_b
+
+
+MG8_TOL = ("A vs plain float32: |df|/|f|<=1e-4 and max|dg|<=1e-3*"
+           "max(1,max|g|), or where float32 cannot hold a lane, vs float64 "
+           "within max(tol, 4x plain float32's own error); B on the first "
+           "B_plain lanes vs the plain round loop in float64, "
+           "iters_vs_plain iterations each: |dsuccess|<=0.02+spread, "
+           "|dcost p50|<=(2%+spread) (spread: its own largest move with x0 "
+           "perturbed by 1e-7, 3 seeds), 12-iteration paths equal on >=50% "
+           "of the lanes; both kernels launched on every call; finite "
+           "coefficients from ini_state[0] to the last real segment's "
+           "fin_state within 1e-3 m; the ladder's success >= the direct "
+           "solve's")
+
+
+# ---- 16. capacity 32: kernels A and B at classes with a segment of 17 to
+# 32 pieces, on long_gear_batch lanes (a drive through a 40 x 60 m lot's
+# aisles at the front end's speeds, pieced as the reference pieces a
+# segment: 0.8-1.2 s), and on the front end's own long drives, through
+# make_solver(engine="fused")
+C32_B = 1024
+C32_CLASSES = {
+    "C32-N32": dict(S=1, N=32, K=16, Kdes=32, H=4, O=2, Po=8),
+    "C32-N24": dict(S=1, N=24, K=16, Kdes=32, H=4, O=0, Po=8),
+    "C32-S2-32-8": dict(S=2, N=32, K=16, Kdes=32, H=4, O=0, Po=8,
+                        Ns=(32, 8)),
+    "C32-S5": dict(S=5, N=32, K=16, Kdes=32, H=4, O=0, Po=8,
+                   Ns=(32, 8, 4, 2, 2))}
+C32_SEED = 3
+# the front end's long drives: queries down a 30 x 160 m lot, planned by
+# pipeline.ParkingPlanner with the class ladder up to N = 32
+C32_PIPE_QUERIES = 32
+C32_TOL = ("no float64 lane at a negative cost; A vs plain float64: "
+           "|df|/|f|<=1e-4 and max|dg|<=1e-3*max(1,max|g|) (C32-frontend: "
+           "vs plain float32 at that tolerance or vs float64 within "
+           "max(tol, 4x plain float32's own error)); B on the first "
+           "B_plain lanes vs the plain round loop in float64, "
+           "iters_vs_plain iterations each: |dsuccess|<=0.02+spread, "
+           "|dcost p50|<=(2%+spread) (spread: its own largest move with x0 "
+           "perturbed by 1e-7, 3 seeds), 12-iteration paths equal on >=50% "
+           "of the lanes; both kernels launched on every call; finite "
+           "coefficients from ini_state[0] to the last segment's fin_state "
+           "within 1e-3 m")
+
+
+def _long_drives(cfg):
+    """The front end's long drives (phase 16): C32_PIPE_QUERIES
+    single-gear queries of 90-130 m down a 30 x 160 m lot (seeded start
+    and goal), planned by pipeline.ParkingPlanner over the ladder Dims(S=1,
+    N) for N in (2, 4, 8, 16, 32) (the reference's piecing, max(round(dur
+    / 1 s), 2), puts each into N = 32). Emits its line; raises unless
+    every query planned in the N = 32 class. Returns that class and the
+    plans (numpy Scenario)."""
+    from dftpav_tpu_torch import scenarios
+    from dftpav_tpu_torch.frontend import GridMap2D
+    from dftpav_tpu_torch.pipeline import ParkingPlanner
+    from dftpav_tpu_torch.types import Dims
+
+    res = 0.2
+    occ = np.zeros((int(30 / res), int(160 / res)), np.uint8)
+    occ[:3, :] = occ[-3:, :] = occ[:, :3] = occ[:, -3:] = 1
+    classes = [Dims(S=1, N=n, K=16, Kdes=32, H=4, O=0, Po=8)
+               for n in (2, 4, 8, 16, 32)]
+    pp = ParkingPlanner(GridMap2D(occ, origin=(0.0, 0.0), resolution=res),
+                        cfg=cfg, dims_classes=classes)
+    rng = np.random.default_rng(C32_SEED)
+    t0 = time.perf_counter()
+    plans, durs = [], []
+    for _ in range(C32_PIPE_QUERIES):
+        x0, y0 = rng.uniform(6.0, 12.0), rng.uniform(8.0, 22.0)
+        goal = (x0 + rng.uniform(90.0, 130.0), rng.uniform(8.0, 22.0), 0.0,
+                0.0)
+        sc, meta = pp.plan_scenario((x0, y0, 0.0, 0.0), goal)
+        if meta is not None:
+            durs.append(float(meta.durations[0]))
+            if meta.dims == classes[-1]:
+                plans.append(sc)
+    ok = len(plans) == C32_PIPE_QUERIES
+    _emit("capacity32_pipeline", queries=C32_PIPE_QUERIES, plans=len(durs),
+          plans_n32=len(plans), durations_s=durs,
+          plan_s=time.perf_counter() - t0,
+          tol="every query planned, in the N = 32 class", ok=ok)
+    if not ok:
+        raise AssertionError("capacity 32: the front end did not plan "
+                             "every long drive into the N = 32 class")
+    return classes[-1], scenarios.stack_scenarios(plans)
+
+
+def _capacity32_classes(cfg, w, tuned, iters):
+    """Phase 16's classes (module docstring) for _classes_card: each of
+    C32_CLASSES on long_gear_batch lanes, and the front end's long drives
+    (_long_drives) as the class C32-frontend, through
+    make_solver(engine="fused"). C32-frontend's kernel A is held by phase
+    15's rule for the front end's lanes (_a_ok_15): at its positions of up
+    to ~140 m float32 resolves the gradient only to ~1e-1 of float64 (the
+    jerk form over absolute positions), so no float32 kernel meets 1e-3
+    there."""
+    from dftpav_tpu_torch import _fixtures, solver
+    from dftpav_tpu_torch.types import Dims
+
+    def entry(dims_n, npb, **kw):
+        s = solver.make_solver(cfg, dims_n, max_iterations=iters,
+                               engine="fused", flags=tuned)
+        return dict(dims=dims_n, npb=npb, solve=lambda bn: s(bn, w), **kw)
+
+    table = {}
+    for name, kw in C32_CLASSES.items():
+        dims_n = Dims(**kw)
+        table[name] = entry(dims_n, _fixtures.long_gear_batch(
+            dims_n, C32_B, seed=C32_SEED, dtype=np.float32,
+            n_obstacles=dims_n.O), info={"seed": C32_SEED})
+    table["C32-frontend"] = entry(*_long_drives(cfg), a_ok=_a_ok_15)
+    return table
 
 
 def main(argv=None) -> int:
@@ -2865,13 +3091,15 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
         return dims, x0v, scv, kcv
 
     def parent_ab():
-        """The --parent lines; returns the other build's compiler log."""
+        """The --parent lines; returns the other build's compiler log and
+        its machine instructions per kernel."""
         so_other, build_s_other, other = _other_kernel_b(args.parent)
+        sass_other = _sass_sizes(so_other)
         _emit("parent_build", csrc=args.parent, build_s=build_s_other,
               nvcc_s=_nvcc_seconds(so_other.with_suffix(".log").read_text()),
               registers_spill_store_bytes=_ptxas(
                   so_other.with_suffix(".log").read_text()),
-              machine_instructions=_sass_sizes(so_other))
+              machine_instructions=sass_other)
         turns = (("package", _cuda.launch_solve_fused), ("parent", other),
                  ("parent", other), ("package", _cuda.launch_solve_fused))
         for variant in ("base", "no_corridor", "no_obstacles", "replicated8"):
@@ -2952,9 +3180,9 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
         _emit("profile", B=B_main, device_time=sorted(
             (r for r in rows if r["device_ms"] > 0),
             key=lambda r: -r["device_ms"])[:12])
-        return so_other.with_suffix(".log").read_text()
+        return so_other.with_suffix(".log").read_text(), sass_other
 
-    parent_log = parent_ab() if args.parent else None
+    parent_log, parent_sass = parent_ab() if args.parent else (None, None)
 
     # ---- 5. kernels K2 / K3 vs plain ----
     from dftpav_tpu_torch import cost
@@ -3373,12 +3601,20 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
 
     # ---- 15. the many-gear classes, their work on the card (their float64
     # loops run in phase 14's pool, their gates after it)
-    mg8, mg8_jobs = _manygear_card(cfg, w, sw, tuned, iters, a_gate, fe_rx)
+    mg8, mg8_jobs = _classes_card(
+        "mg8", _manygear_classes(cfg, w, tuned, iters, fe_rx), cfg, w, sw,
+        tuned, iters, a_gate, _a_ok_15)
+
+    # ---- 16. capacity 32, its work on the card (its float64 loops run in
+    # phase 14's pool too, its gates after phase 15's)
+    c32, c32_jobs = _classes_card(
+        "c32", _capacity32_classes(cfg, w, tuned, iters), cfg, w, sw, tuned,
+        iters, a_gate, _a_ok_16)
 
     # ---- 14. the class domain: N = 5 / 6 / 16, Ns = (16, 8), m = 64 / 256
     cd_launches, cd_rows_a, cd_rows_b, ref_plain = _class_domain_phase(
         cfg, w, sw, tuned, iters, ctx, big, res, a_gate,
-        more=dict(sorted({**mg8_jobs, **mg_jobs}.items(),
+        more=dict(sorted({**mg8_jobs, **mg_jobs, **c32_jobs}.items(),
                          key=lambda kv: -(kv[1][0].S + 3 * kv[1][0].O))))
 
     # ---- 7. the multigear path's gates, on phase 14's pool's float64 loops
@@ -3469,8 +3705,13 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
                               if "kernelILi" in k})
 
     # ---- 15. the many-gear classes' gates: S = 5 to 8
-    mg8_launches, mg8_rows_a, mg8_rows_b = _manygear_gates(
-        cfg, mg8, ref_plain, parent_log, sass)
+    _compiler_line(parent_log, sass, parent_sass)
+    mg8_launches, mg8_rows_a, mg8_rows_b = _classes_gates(
+        "mg8", "manygear", cfg, mg8, ref_plain, MG8_TOL, neg_gate=False)
+
+    # ---- 16. capacity 32's gates: segments of 17 to 32 pieces
+    c32_launches, c32_rows_a, c32_rows_b = _classes_gates(
+        "c32", "capacity32", cfg, c32, ref_plain, C32_TOL, neg_gate=True)
 
     kernels = [
         {"name": "dftpav_eval_fg", "route": "cuda",
@@ -3483,7 +3724,8 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
                               **{k: v[0] for k, v in rp_paths.items()},
                               "sharded": sharded[0],
                               "class_domain": cd_launches[0],
-                              "manygear": mg8_launches[0]},
+                              "manygear": mg8_launches[0],
+                              "capacity32": c32_launches[0]},
          "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_a"],
                         "plain_ms": r["plain_ms_a"],
                         "bound_ms": r["bound_ms_a"],
@@ -3491,7 +3733,7 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
                         "max_abs_err": r["max_abs_err_a"],
                         "err_of": "f and g vs plain float64 at the class's "
                                   "x0"} for r in mg_rows] + cd_rows_a
-         + mg8_rows_a,
+         + mg8_rows_a + c32_rows_a,
          "ms": times_main["ms_a"], "plain_ms": times_main["plain_ms_a"],
          "bound_ms": times_main["bound_ms_a"],
          "bound_by": times_main["bound_by_a"], "library_ms": None},
@@ -3505,12 +3747,13 @@ def _run(args, build_s, pool_rx, urban_rx, eudm_rx, fe_rx, ctx) -> int:
                               **{k: v[1] for k, v in rp_paths.items()},
                               "sharded": sharded[1],
                               "class_domain": cd_launches[1],
-                              "manygear": mg8_launches[1]},
+                              "manygear": mg8_launches[1],
+                              "capacity32": c32_launches[1]},
          "per_class": [{"ns": r["ns"], "m": p.mem_size, "ms": r["ms_b"],
                         "plain_ms_f64": r["plain_ms_b_f64"],
                         "bound_ms": r["bound_ms_b"],
                         "bound_by": r["bound_by_b"]} for r in mg_rows]
-         + cd_rows_b + mg8_rows_b,
+         + cd_rows_b + mg8_rows_b + c32_rows_b,
          "ms": times_main["ms_b"], "plain_ms": times_main["plain_ms_b"],
          "bound_ms": times_main["bound_ms_b"],
          "bound_by": times_main["bound_by_b"], "library_ms": None},

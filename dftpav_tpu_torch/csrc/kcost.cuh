@@ -510,9 +510,11 @@ struct KDims {
   static constexpr int DIM = NIN + S + 3 * (S - 1);  // decision length
   static constexpr int DP = ((DIM + 7) / 8) * 8 > 16 ? ((DIM + 7) / 8) * 8 : 16;
   // slots of a member's gradient partials: the 2 (N + 5) rhs entries, then
-  // d/d dT and d/d tt (the segment's time offset); a power of two and a
-  // multiple of every team size (32 up to N = 10, 64 up to N = 26)
-  static constexpr int ACC = 2 * C + 2 <= 32 ? 32 : 64;
+  // d/d dT and d/d tt (the segment's time offset); a multiple of every team
+  // size, so that each of the reduce-scatter's five halvings splits it
+  // evenly (32 up to N = 10, 64 up to N = 26, 96 = 3 x 32 up to N = 42)
+  static constexpr int ACC =
+      2 * C + 2 <= 32 ? 32 : (2 * C + 2 <= 64 ? 64 : 96);
   static_assert(2 * C + 2 <= ACC, "gradient slots");
 };
 

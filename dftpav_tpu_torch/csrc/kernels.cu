@@ -1,6 +1,6 @@
 // The plain C interface of kernels A and B (kernels.cuh), loaded with ctypes
 // by dftpav_tpu_torch/ops/_cuda.py, and their instantiation at capacity 8
-// for S = 1 and 2 (kernels8_s34.cu .. kernels16_s78.cu instantiate the
+// for S = 1 and 2 (kernels8_s34.cu .. kernels32_s78.cu instantiate the
 // others, each compiled beside this file by its own nvcc process into the
 // same library). The class in the weight vector picks the capacity, its S
 // the instantiation.
@@ -19,15 +19,17 @@ typedef KW<float, kMaxS> KWide;
 
 // The instantiation for the class in w (class_ok has checked it).
 Ops ops_for(const KWide& w) {
-  static const Ops table[2][kMaxS] = {
+  static const Ops table[3][kMaxS] = {
       {ops_8_1(), ops_8_2(), ops_8_3(), ops_8_4(), ops_8_5(), ops_8_6(),
        ops_8_7(), ops_8_8()},
       {ops_16_1(), ops_16_2(), ops_16_3(), ops_16_4(), ops_16_5(),
-       ops_16_6(), ops_16_7(), ops_16_8()}};
-  return table[w.cap == 16][w.nseg - 1];
+       ops_16_6(), ops_16_7(), ops_16_8()},
+      {ops_32_1(), ops_32_2(), ops_32_3(), ops_32_4(), ops_32_5(),
+       ops_32_6(), ops_32_7(), ops_32_8()}};
+  return table[w.cap == 8 ? 0 : (w.cap == 16 ? 1 : 2)][w.nseg - 1];
 }
 
-constexpr int kCaps[] = {8, 16};   // capacities this library is built for
+constexpr int kCaps[] = {8, 16, 32};   // capacities this library is built for
 
 Args make_args(const float* x, const float* f0, const float* g0,
                const float* bnd, const float* misc, const float* cn,
@@ -48,7 +50,7 @@ Args make_args(const float* x, const float* f0, const float* g0,
 // capacity, 1 to kMaxS segments of 2 to capacity pieces each (any count:
 // a segment reads its own at run time), rows kept within R (all R at S = 1).
 bool class_ok(const KWide& w, int R) {
-  if (w.cap != 8 && w.cap != 16) return false;
+  if (w.cap != 8 && w.cap != 16 && w.cap != 32) return false;
   if (w.nseg < 1 || w.nseg > kMaxS || (w.nseg == 1 && w.rs[0] != R))
     return false;
   for (int s = 0; s < w.nseg; ++s)
@@ -85,6 +87,7 @@ int dftpav_kernel_dp(int cap, int S) {
   }
   if (cap == 8) DFT_DP(8)
   if (cap == 16) DFT_DP(16)
+  if (cap == 32) DFT_DP(32)
 #undef DFT_DP
   return 0;
 }

@@ -26,7 +26,7 @@
 // one copy per distinct piece count of the class's segments, each holding
 // only its weighted rows.
 //
-// The class: capacity N (8 or 16: the pieces per segment the decision
+// The class: capacity N (8, 16 or 32: the pieces per segment the decision
 // vector and the rhs have room for) and S (1 to 8) are template
 // arguments; each segment's own piece count (any n_s from 2 to N), rows and
 // sigma are read at run time from the weight vector, so that every class
@@ -44,10 +44,14 @@
 //     class of more than four segments whose distinct piece counts and
 //     wider slices leave fewer warps), a small kernel writes them once per
 //     launch into a global scratch in the same layout, and the warps read
-//     them there (~240 KB: resident in the card's 50 MB L2);
+//     them there (~240 KB at N = 16: resident in the card's 50 MB L2); at
+//     capacity 32 always (~760 KB per distinct piece count of 32);
 //   * the history stays in the warp's slice up to kMemShared pairs (so the
 //     m = 16 classes keep the layout they always had) and lies in a
-//     per-lane global scratch [B][hist_floats] above.
+//     per-lane global scratch [B][hist_floats] above; at capacity 32 also
+//     where a slice with it would leave fewer than kMinWarps warps (the
+//     decision vectors of up to 528 rows make an m = 16 history 42 KB at
+//     S = 5).
 //
 // Kernel B runs a persistent grid: as many blocks as fit on the card (the
 // occupancy API; 16 warps each, fewer where a class's shared memory needs
@@ -123,7 +127,8 @@ struct Ops {
 // compiles that instantiation, so that nvcc builds them in parallel:
 // kernels.cu capacity 8 at S = 1, 2, kernels8_s34.cu at S = 3, 4,
 // kernels8_s56.cu and kernels8_s78.cu at S = 5 to 8, and
-// kernels16_s<S..>.cu the same pairs of S at capacity 16.
+// kernels16_s<S..>.cu and kernels32_s<S..>.cu the same pairs of S at
+// capacities 16 and 32.
 #define DFT_DECLARE_OPS(N_, S_) Ops ops_##N_##_##S_();
 DFT_DECLARE_OPS(8, 1) DFT_DECLARE_OPS(8, 2) DFT_DECLARE_OPS(8, 3)
 DFT_DECLARE_OPS(8, 4) DFT_DECLARE_OPS(16, 1) DFT_DECLARE_OPS(16, 2)
@@ -131,6 +136,9 @@ DFT_DECLARE_OPS(16, 3) DFT_DECLARE_OPS(16, 4)
 DFT_DECLARE_OPS(8, 5) DFT_DECLARE_OPS(8, 6) DFT_DECLARE_OPS(8, 7)
 DFT_DECLARE_OPS(8, 8) DFT_DECLARE_OPS(16, 5) DFT_DECLARE_OPS(16, 6)
 DFT_DECLARE_OPS(16, 7) DFT_DECLARE_OPS(16, 8)
+DFT_DECLARE_OPS(32, 1) DFT_DECLARE_OPS(32, 2) DFT_DECLARE_OPS(32, 3)
+DFT_DECLARE_OPS(32, 4) DFT_DECLARE_OPS(32, 5) DFT_DECLARE_OPS(32, 6)
+DFT_DECLARE_OPS(32, 7) DFT_DECLARE_OPS(32, 8)
 #undef DFT_DECLARE_OPS
 
 namespace {
@@ -166,9 +174,9 @@ __host__ __device__ inline int slot_of(const KW<float, K>& w, int s) {
   return j;
 }
 
-// Whether the class constants may lie in global memory: at capacity 16,
-// and in the classes of more than four segments (kernels A and B then
-// read them through generic loads); at capacity 8 and S <= 4 they are
+// Whether the class constants may lie in global memory: at capacities 16
+// and 32, and in the classes of more than four segments (kernels A and B
+// then read them through generic loads); at capacity 8 and S <= 4 they are
 // always shared, which the compiler knows (shared-memory loads).
 template <int N, int S>
 constexpr bool kConstsMayLeave = N > 8 || S > 4;
@@ -513,20 +521,23 @@ inline int warps_for(const Layout<K>& l, int smem) {
 // capacity 8 and S <= 4 always: a class there has at most three distinct
 // piece counts, <= 140 KB of constants at the bench resolution, and
 // kernels A and B keep their shared-memory loads), else they go to global
-// memory; the history stays in the slice up to kMemShared pairs and while
-// a slice with it fits, else it goes to global memory. *ok = false where
-// not even one slice fits.
+// memory, and at capacity 32 always (kWide); the history stays in the
+// slice up to kMemShared pairs and while a slice with it fits (at capacity
+// 32, while kMinWarps do), else it goes to global memory. *ok = false
+// where not even one slice fits.
 template <int N, int S>
 inline LayoutS<S> place(const KWS<float, S>& w, int O, int Po, int m,
                         int past, int smem, bool* ok) {
   constexpr bool may_leave = kConstsMayLeave<N, S>;
+  constexpr bool kWide = N > 16;
   const int first_h = m > kMemShared ? 1 : 0;
   *ok = true;
-  for (int c = 0; c < (may_leave ? 2 : 1); ++c)
+  for (int c = kWide ? 1 : 0; c < (may_leave ? 2 : 1); ++c)
     for (int h = first_h; h < 2; ++h) {
       const LayoutS<S> l = layout<N, S>(w, O, Po, m, past, c == 1, h == 1);
-      if (warps_for(l, smem) >= (c == 0 && may_leave ? kMinWarps : 1))
-        return l;
+      const int need = (c == 0 && may_leave) || (kWide && h == 0)
+                           ? kMinWarps : 1;
+      if (warps_for(l, smem) >= need) return l;
     }
   *ok = false;
   return layout<N, S>(w, O, Po, m, past, may_leave, true);

@@ -18,7 +18,9 @@
 // decision coordinate of every vector in registers (two or more above 32
 // coordinates, the multi-gear classes), the evaluated point in shared
 // memory, the history there too up to kMemShared pairs and in a per-lane
-// scratch in global memory above (lane_history).
+// scratch in global memory above (lane_history), or where a slice with it
+// leaves too few warps (kernels.cuh place: capacity 32, whose decision
+// vectors have up to 528 rows).
 #pragma once
 
 #include "kcost.cuh"
@@ -49,9 +51,9 @@ constexpr int kPastSlots = 8;
 // (the main path's) ran before m became a run-time value; with m at run
 // time their kernel B measured 4-16% slower on the bench class (more
 // instructions, history loads that may be shared or global; PERF.md
-// section 6). Other m, capacity 16, and the classes of more than four
-// segments (one kernel B each, which keeps their build short) run with m
-// at run time (KM = 0).
+// section 6). Other m, capacities 16 and 32, and the classes of more than
+// four segments (one kernel B each, which keeps their build short) run
+// with m at run time (KM = 0).
 template <int N, int S>
 constexpr int kFixedMem = N == 8 && S <= 4 ? kMemShared : 0;
 

@@ -165,7 +165,7 @@ def _check(name, t, shape):
 
 
 # The kernels' domain: gear segments (csrc/common.cuh kMaxS), pieces per
-# segment (the largest capacity, csrc/kernels.cu kCaps) and corridor
+# segment (the largest capacity, csrc/kernels.cu kCaps: 32) and corridor
 # half-planes per row (kMaxH); _check_inputs holds a class to the loaded
 # library's own limits.
 MAX_S = 8

@@ -21,7 +21,7 @@ same rows, each with its own sample maps (built for its piece count n_s,
 zero-padded to C = N+5 rhs columns), gear-junction boundary overrides read
 from the decision vector, and absolute obstacle time offset by the earlier
 segments' durations. Every function here also takes a KClass, the layout
-the kernels run a class in: N there is a capacity (8 or 16) and each
+the kernels run a class in: N there is a capacity (8, 16 or 32) and each
 segment's own piece count n_s is any from 2 to N (kernel_class). The
 kernels take S <= 8 (ops/_cuda.py).
 """
@@ -50,7 +50,7 @@ def _pad8(n: int) -> int:
 
 
 # Pieces per segment the kernels have layouts for (csrc/kernels.cu kCaps).
-CAPACITIES = (8, 16)
+CAPACITIES = (8, 16, 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +74,9 @@ class KClass(Dims):
 def kernel_class(dims: Dims) -> KClass:
     """The layout the kernels run `dims` in: the smallest capacity that
     holds every segment's piece count (a uniform N <= 8 at capacity 8 with
-    Ns = (N,) * S, N from 9 to 16 at capacity 16; per-segment classes keep
-    their counts). A class no capacity holds keeps its N (the kernels
-    refuse it: ops/_cuda.py check_domain)."""
+    Ns = (N,) * S, N from 9 to 16 at capacity 16, 17 to 32 at capacity 32;
+    per-segment classes keep their counts). A class no capacity holds
+    keeps its N (the kernels refuse it: ops/_cuda.py check_domain)."""
     if isinstance(dims, KClass):
         return dims
     ns = dims.ns_tuple

@@ -12,15 +12,15 @@ lane, not the max.
 `solve_batch_fused` is the wrapper: for CUDA tensors it evaluates the
 initial point with kernel A (kcost.eval_fg) and runs the whole round loop
 with kernel B (csrc/kernels.cu `dftpav_solve_fused`, one warp per lane,
-each lane exiting on its own; S <= 8 gear segments of 2 to 16 pieces each,
+each lane exiting on its own; S <= 8 gear segments of 2 to 32 pieces each,
 any L-BFGS memory m and past window); for CPU tensors it runs the plain
 loop, any S and N. Every class runs in the layout of its kernel class
-(embedded_class, kcost.KClass): a capacity of 8 or 16 pieces per segment,
-each segment's inner waypoints in the leading rows of its N - 1 and its
-corridor rows in the leading pieces, the rest zero and masked. Those rows
-are inert (zero value and zero gradient), so the L-BFGS products are the
-native class's and only float32 summation order differs; the result is
-mapped back and finalized in the native class. The TPU's multi-phase lane
+(embedded_class, kcost.KClass): a capacity of 8, 16 or 32 pieces per
+segment, each segment's inner waypoints in the leading rows of its N - 1
+and its corridor rows in the leading pieces, the rest zero and masked.
+Those rows are inert (zero value and zero gradient), so the L-BFGS products
+are the native class's and only float32 summation order differs; the
+result is mapped back and finalized in the native class. The TPU's multi-phase lane
 compaction has no counterpart: it re-gathered the stragglers of 128-lane
 tiles that ran until their slowest lane finished, and was bit-identical
 per lane to the unphased solve, so a kernel whose lanes exit individually
@@ -319,7 +319,9 @@ def solve_batch_rounds(batch: Scenario, w: Weights, dims: Dims,
 
 
 # The class the kernels run a class in (kcost.KClass: capacity 8 for every
-# segment of at most 8 pieces, 16 above; the segments' own piece counts).
+# segment of at most 8 pieces, 16 up to 16, 32 up to 32; the segments' own
+# piece counts): Dims(S=1, N=24), for one, runs as KClass(S=1, N=32,
+# Ns=(24,)).
 embedded_class = kcost.kernel_class
 
 
@@ -367,7 +369,7 @@ def solve_batch_fused(batch: Scenario, w: Weights, dims: Dims,
     kernel class (module docstring). CPU tensors run the plain round loop
     (solve_batch_rounds) instead. Same arguments and return as
     solve_batch_rounds; a class the kernels do not take (S > 8, a segment
-    of more than 16 pieces, H > 8) raises NotImplementedError."""
+    of more than 32 pieces, H > 8) raises NotImplementedError."""
     if not batch.init_T.is_cuda:
         return solve_batch_rounds(batch, w, dims, cfg, max_iterations,
                                   flags, x0_override, return_x)

@@ -92,9 +92,10 @@ def host_copy(tmp_path_factory):
 
 def test_every_source_is_checked():
     """The kernel sources the library is built from, those of S = 5 to 8
-    included."""
+    and of capacity 32 included."""
     assert {"kernels.cu", "kernels8_s56.cu", "kernels8_s78.cu",
-            "kernels16_s56.cu", "kernels16_s78.cu",
+            "kernels16_s56.cu", "kernels16_s78.cu", "kernels32_s12.cu",
+            "kernels32_s34.cu", "kernels32_s56.cu", "kernels32_s78.cu",
             "penalty.cu"} <= set(SOURCES)
 
 

@@ -340,12 +340,13 @@ def test_domain_admits(dims, mem, past):
 
 @pytest.mark.parametrize("dims,limit", [
     (Dims(S=9, N=8), "S <= 8"), (Dims(S=9, N=2), "S <= 8"),
-    (Dims(S=1, N=17), "N <= 16"), (Dims(S=2, N=32, Ns=(32, 16)), "N <= 16")])
+    (Dims(S=1, N=33), "N <= 32"),
+    (Dims(S=2, N=64, Ns=(64, 32)), "N <= 32")])
 def test_domain_refuses_with_the_limit(dims, limit):
     """What the kernels refuse raises NotImplementedError naming the limit
     (the plain round loop takes every class)."""
     with pytest.raises(NotImplementedError, match=limit):
-        _cuda.check_domain(dims, max_s=8, max_n=16, max_h=8)
+        _cuda.check_domain(dims, max_s=8, max_n=32, max_h=8)
 
 
 def test_domain_refuses_bad_lbfgs_settings():
@@ -355,16 +356,16 @@ def test_domain_refuses_bad_lbfgs_settings():
 
 
 def test_plain_loop_takes_a_class_the_kernels_refuse():
-    """N = 17 is past the kernels' domain, and on CPU tensors
+    """N = 33 is past the kernels' domain, and on CPU tensors
     solve_batch_fused (the fused engine's entry) still runs it: the plain
     round loop takes every class."""
     cfg = config.PlannerConfig()
-    dims = Dims(S=1, N=17, K=8, Kdes=12, H=4, O=0, Po=8)
-    with pytest.raises(NotImplementedError, match="N <= 16"):
+    dims = Dims(S=1, N=33, K=8, Kdes=12, H=4, O=0, Po=8)
+    with pytest.raises(NotImplementedError, match="N <= 32"):
         _cuda.check_domain(dims)
     w = weights_from_config(cfg.opt, torch.float64, device="cpu")
     batch = from_numpy(_numpy_batch(dims), Scenario, device="cpu",
                        dtype=torch.float64)
     res = pallas_solve.solve_batch_fused(batch, w, dims, cfg, 2)
-    assert res.coeffs.shape == (B, 1, 17, 6, 2)
+    assert res.coeffs.shape == (B, 1, 33, 6, 2)
     assert bool(torch.isfinite(res.coeffs).all())

@@ -334,7 +334,7 @@ def test_embedded_class_routing():
         assert (kd.N, kd.Ns, kd.S) == (cap, keep.ns_tuple, keep.S)
     from dftpav_tpu_torch.ops import _cuda
     lib = pytypes.SimpleNamespace(dftpav_kernel_max_s=lambda: _cuda.MAX_S)
-    for dims in (Dims(S=9, N=2), Dims(S=9, N=4), Dims(S=1, N=17)):
+    for dims in (Dims(S=9, N=2), Dims(S=9, N=4), Dims(S=1, N=33)):
         with pytest.raises(NotImplementedError):
             _cuda._check_inputs(lib, None, None, None, emb(dims))
 
